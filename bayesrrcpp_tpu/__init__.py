@@ -1,6 +1,6 @@
-"""bayesrrcpp_tpu -- a TPU-native Bayesian whole-genome regression engine.
+"""bayesrrcpp_tpu -- a Bayesian whole-genome regression engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 medical-genomics-group/BayesRRcpp reference (an Rcpp/Eigen package; see
 SURVEY.md for the structural analysis).  Samplers:
 
@@ -16,21 +16,17 @@ import os as _os
 
 import jax as _jax
 
-# TPU matmuls default to ONE bfloat16 MXU pass per f32 dot (~0.4% relative
-# error per product).  For this engine that is not a benign speed/accuracy
-# trade: the Gibbs residual algebra runs THROUGH matmuls -- the fold-affine
-# code dots, the one-hot permute matmuls (whose exactness the kernels
-# assume), the Gram operand builds, and the eps rank-1 applies -- and the
-# sigmaE/sigmaG feedback loop amplifies the rounding into chain DIVERGENCE
-# at biobank scale (measured on v5e: packed N=49k x M=246k population-stats
-# chains explode within 5 iterations at default precision and converge
-# cleanly at 'highest'; see BENCH.md round 5).  The MXU dot work is ~1 ms
-# of the ~70 ms biobank iteration, so the multi-pass f32 cost is noise.
-# Opt out (e.g. for an unrelated workload sharing the process) with
-# BAYESRRCPP_TPU_MATMUL_PRECISION=default|float32|highest.
+# On a GPU a default-precision f32 matmul may run in TF32 (~3 decimal
+# digits).  For this engine that is not a benign speed/accuracy trade: the
+# Gibbs residual algebra runs THROUGH matmuls -- the dense X passes, the
+# Gram builds and the eps rank-B applies -- and the sigmaE/sigmaG feedback
+# loop amplifies the rounding into chain divergence at biobank scale.  So
+# the package asks for full f32 ('highest').  Opt out (e.g. for an
+# unrelated workload sharing the process) with
+# BAYESRRCPP_MATMUL_PRECISION=default|float32|highest.
 _jax.config.update(
     "jax_default_matmul_precision",
-    _os.environ.get("BAYESRRCPP_TPU_MATMUL_PRECISION", "highest"))
+    _os.environ.get("BAYESRRCPP_MATMUL_PRECISION", "highest"))
 
 from .config import BayesRConfig, ChainConfig, GroupsConfig, HorseshoeConfig
 from .models.bayesr import SpikeSlabSampler

@@ -37,13 +37,13 @@ def _add_common(p):
     p.add_argument("--burn-in", type=int, default=1000)
     p.add_argument("--thinning", type=int, default=5)
     p.add_argument("--block-size", type=int, default=512)
-    p.add_argument("--backend", choices=["auto", "pallas", "blocked", "scan"],
+    p.add_argument("--backend", choices=["auto", "blocked", "scan"],
                    default="auto")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
-    p.add_argument("--platform", choices=["default", "cpu", "tpu"],
+    p.add_argument("--platform", choices=["default", "cpu", "gpu"],
                    default="default",
                    help="force the JAX platform (cpu is useful for small "
-                        "runs when the default device is a remote TPU)")
+                        "runs on a machine with a GPU)")
     p.add_argument("--no-epsilon", action="store_true",
                    help="omit the per-sample residual vector from the output")
     p.add_argument("--no-standardize", action="store_true")

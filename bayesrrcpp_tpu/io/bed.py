@@ -104,9 +104,9 @@ def read_bed_packed(prefix: str, *, n_threads: int = 0,
 
     ``mpad`` pads the MARKER axis on the host with all-missing rows
     before any device transfer: pass ``"auto"`` (the default sampler's
-    padded count, ops.pallas_jacobi.planned_mpad) or an explicit count.
+    padded count, ops.strided.planned_mpad) or an explicit count.
     A device-resident packed array cannot be padded later without a
-    second near-HBM-sized buffer (input + output both live during the
+    second buffer of its size (input + output both live during the
     copy), so at biobank scale the pad MUST happen here.
 
     Uses the threaded C++ decoder (native/bedreader.cpp) when built,
@@ -148,10 +148,9 @@ def read_bed_packed(prefix: str, *, n_threads: int = 0,
             raw.reshape(M, bpm), N, wpad)
 
     if has_missing:
-        # the in-kernel decode zeroes MISSING_CODE lanes, so pad individuals
-        # must carry code 3 when the non-fold kernel runs (the no-missing
-        # fold kernel instead wants code 0 + the row_valid lane mask; see
-        # ops/pallas_sweep.py::bayesr_sweep_pallas)
+        # pad individuals carry code 3 when calls are missing (decoded to
+        # 0), else code 0; the X pass masks pad lanes either way (see
+        # ops/xpass.py)
         by = words.view(np.uint8).reshape(M, wpad * 4)
         vb, rem = divmod(N, 4)
         if rem:
@@ -162,7 +161,7 @@ def read_bed_packed(prefix: str, *, n_threads: int = 0,
             by[:, vb:] = 0xFF
     if mpad is not None:
         if mpad == "auto":
-            from ..ops.pallas_jacobi import planned_mpad
+            from ..ops.strided import planned_mpad
             mpad = planned_mpad(M)
         if mpad < M:
             raise ValueError(f"mpad={mpad} < {M} markers read")

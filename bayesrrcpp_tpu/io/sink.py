@@ -1,6 +1,6 @@
 """Sample sinks: stream thinned posterior samples to disk.
 
-TPU-native replacement for the reference's output path (components C6+C8 in
+Replacement for the reference's output path (components C6+C8 in
 SURVEY.md): the reference runs a 2-thread OpenMP producer/consumer split over
 a vendored lock-free queue and writes CSV rows from the consumer
 (reference: src/BayesRv2.cpp:102-108, 281-290, src/concurrentqueue.h:683).

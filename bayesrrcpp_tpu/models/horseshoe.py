@@ -1,4 +1,4 @@
-"""Regularized-horseshoe Gibbs sampler (C4, TPU-native).
+"""Regularized-horseshoe Gibbs sampler (C4).
 
 Re-design of the reference HorseshoeR sampler (reference:
 src/HorseshoeR.cpp:109-264): local-global half-Cauchy shrinkage via
@@ -34,7 +34,9 @@ from .. import distributions as dist
 from ..config import ChainConfig, HorseshoeConfig
 from ..ops import block_sweep as bs
 from ..ops import genotypes
+from ..ops import strided
 from ..ops.sweep import horseshoe_sweep_scan
+from ..ops.xpass import xpass_impl
 from .state import HorseshoeState
 
 
@@ -47,7 +49,6 @@ class HorseshoeData(NamedTuple):
     x_scale: jax.Array   # (Mpad,) 1/sd scales ((0,) when dense)
     row_valid: jax.Array # (Npad,) bool lane mask ((0,) unless packed)
     n_perm: jax.Array    # (Npad,) packed-layout lane permutation ((0,))
-    x_colsum: jax.Array  # (Mpad,) decoded column sums ((0,) when dense)
 
 
 class HorseshoeSampler:
@@ -65,22 +66,21 @@ class HorseshoeSampler:
                  x_dtype: str = "dense", x_stats=None,
                  n_individuals: Optional[int] = None,
                  n_markers: Optional[int] = None,
-                 jacobi_blocks: Optional[int] = None,
-                 jacobi_layout: str = "auto"):
+                 jacobi_blocks: Optional[int] = None):
+        from .bayesr import _plan, _warn_if_padded_rows
+
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
-        if backend is None:
-            backend = ("pallas" if (jax.devices()[0].platform == "tpu"
-                                    or x_dtype in ("int8", "2bit"))
-                       else "blocked")
-        if x_dtype in ("int8", "2bit") and backend != "pallas":
-            raise ValueError(f"x_dtype={x_dtype!r} requires the pallas backend")
-        if backend not in ("blocked", "scan", "pallas"):
+        backend = "blocked" if backend is None else backend
+        if backend not in ("blocked", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
+        if x_dtype in ("int8", "2bit") and backend != "blocked":
+            raise ValueError(f"x_dtype={x_dtype!r} requires the blocked "
+                             f"backend")
         if permutation is None:
             permutation = "full" if backend == "scan" else "blocked"
-        if backend in ("blocked", "pallas") and permutation != "blocked":
-            raise ValueError(f"{backend} backend requires blocked permutation")
+        if backend == "blocked" and permutation != "blocked":
+            raise ValueError("blocked backend requires blocked permutation")
         x_on_device = isinstance(X, jax.Array)
         if not x_on_device:
             X = np.asarray(X)
@@ -96,8 +96,6 @@ class HorseshoeSampler:
                 raise ValueError(f"n_markers={M} inconsistent with "
                                  f"{X.shape[0]} packed word rows")
             if n_markers is None:
-                from .bayesr import _warn_if_padded_rows
-
                 _warn_if_padded_rows(x_stats)
             N = X.shape[1] * 16 if n_individuals is None else int(n_individuals)
             if not (X.shape[1] * 16 - 2048 < N <= X.shape[1] * 16):
@@ -110,42 +108,14 @@ class HorseshoeSampler:
             N, M = X.shape
         if Y.shape != (N,):
             raise ValueError("Y must have the same number of rows as X")
-        auto_j = jacobi_blocks is None
-        self.jacobi = 1 if auto_j else int(jacobi_blocks)
-        if self.jacobi < 1:
-            raise ValueError("jacobi_blocks must be >= 1")
-        if jacobi_layout not in ("auto", "row", "t"):
-            raise ValueError(f"unknown jacobi_layout {jacobi_layout!r}")
-        self.jacobi_layout = "row" if jacobi_layout == "auto" else jacobi_layout
-        B = max(8, min(config.block_size, 1 << max(1, (M - 1).bit_length())))
-        if auto_j and backend == "pallas":
-            # default to the Jacobi-batched kernel sized to (M, B, VMEM);
-            # J=1 (exact sequential) for small M (ops/pallas_jacobi.py)
-            from ..ops.pallas_jacobi import auto_jacobi, auto_jacobi_plan
-
-            if jacobi_layout == "auto":
-                self.jacobi, B, self.jacobi_layout = auto_jacobi_plan(M, B)
-            elif jacobi_layout == "t":
-                self.jacobi, B, lay = auto_jacobi_plan(M, B)
-                if lay != "t":
-                    raise ValueError("no transposed jacobi plan for this M; "
-                                     "pass jacobi_blocks explicitly")
-            else:
-                self.jacobi, B = auto_jacobi(M, B)
-        # block count must be a multiple of the Jacobi round width J (the
-        # fast kernel sweeps J blocks per round, ops/pallas_jacobi.py)
-        unit = B * self.jacobi
-        Mpad = -(-M // unit) * unit
-        if Mpad // B >= 64:
-            # 8-aligned block count at scale (same codegen blowup as bayesr)
-            unit8 = B * 8 * self.jacobi // np.gcd(8, self.jacobi)
-            Mpad = -(-M // unit8) * unit8
+        self.jacobi, B = _plan(M, config.block_size, jacobi_blocks)
+        Mpad = strided.plan_mpad(M, B, self.jacobi)
         self.N, self.M, self.Mpad, self.B, self.nb = N, M, Mpad, B, Mpad // B
         if self._prepacked and X.shape[0] not in (M, Mpad):
             raise ValueError(
                 f"pre-packed words have {X.shape[0]} rows; expected the "
                 f"true marker count ({M}) or the planned padded count "
-                f"({Mpad}, = ops.pallas_jacobi.planned_mpad)")
+                f"({Mpad}, = ops.strided.planned_mpad)")
         self.config = config
         self.backend = backend
         self.permutation = permutation
@@ -154,7 +124,6 @@ class HorseshoeSampler:
         self.x_quantized = x_dtype in ("int8", "2bit")
         self.x_packed = x_dtype == "2bit"
         x_mean = x_scale = jnp.zeros((0,), jnp.float32)
-        x_colsum = jnp.zeros((0,), jnp.float32)
         row_valid = jnp.zeros((0,), bool)
         n_perm = jnp.zeros((0,), jnp.int32)
         has_missing = False
@@ -168,7 +137,7 @@ class HorseshoeSampler:
             else:
                 q = genotypes.quantize_int8(X, transposed, x_stats, B, Mpad)
             XT, xsq, gram = q.XT, q.xsq, q.gram
-            x_mean, x_scale, x_colsum = q.x_mean, q.x_scale, q.x_colsum
+            x_mean, x_scale = q.x_mean, q.x_scale
             row_valid, n_perm = q.row_valid, q.n_perm
             self.Npad, has_missing = q.Npad, q.has_missing
         else:
@@ -179,32 +148,15 @@ class HorseshoeSampler:
                     np.ascontiguousarray(X if transposed else X.T), self.dtype)
             xsq = jnp.sum(XT * XT, axis=1)
             XT, xsq, _ = bs.pad_markers(XT, xsq, B, mpad=Mpad)
-            gram = (bs.gram_blocks(XT, B) if backend in ("blocked", "pallas")
+            gram = (bs.gram_blocks(XT, B) if backend == "blocked"
                     else jnp.zeros((0, 0, 0), self.dtype))
-        self._pallas_interpret = jax.devices()[0].platform != "tpu"
         self._x_fold = self.x_quantized and not has_missing
-        # packed-with-missing keeps the transposed Jacobi fast path via
-        # the exact sparse correction (ops/pallas_jacobi_t.py ``missing``)
-        self._x_miss = self.x_packed and has_missing
-        if self.jacobi > 1:
-            if backend != "pallas":
-                raise ValueError("jacobi_blocks > 1 requires the pallas "
-                                 "backend")
-            if self.x_quantized and not self._x_fold:
-                if self._x_miss and self.jacobi_layout == "t":
-                    pass  # missing fast path (transposed kernel)
-                elif auto_j:
-                    self.jacobi = 1
-                else:
-                    raise ValueError(
-                        "jacobi_blocks > 1 supports dense, missing-free "
-                        "quantized, or packed-missing (jacobi_layout='t') "
-                        "X only")
+        self._x_kind = x_dtype
+        self._xpass_impl = xpass_impl(jax.devices()[0].platform)
         self.data = HorseshoeData(XT=XT, xsq=xsq, gram=gram,
                                   valid=jnp.asarray(np.arange(Mpad) < M),
                                   x_mean=x_mean, x_scale=x_scale,
-                                  row_valid=row_valid, n_perm=n_perm,
-                                  x_colsum=x_colsum)
+                                  row_valid=row_valid, n_perm=n_perm)
         # packed mode stores Y (and eps) padded to Npad in the packed-word
         # individual order (sweep sums are permutation-invariant; emission
         # un-permutes)
@@ -215,16 +167,7 @@ class HorseshoeSampler:
                                   donate_argnums=(0,))
         self._emit_chunk = jax.jit(self._emit_chunk_impl, static_argnums=(2, 3),
                                    donate_argnums=(0,))
-        # multi-chain variants (vmap over the chain axis)
-        self._vrun_steps = jax.jit(
-            lambda s, d, n: lax.fori_loop(
-                0, n,
-                lambda i, st: jax.vmap(self._step_impl, in_axes=(0, None))(st, d),
-                s),
-            static_argnums=(2,), donate_argnums=(0,))
-        self._vemit_chunk = jax.jit(self._vemit_chunk_impl,
-                                    static_argnums=(2, 3), donate_argnums=(0,))
-        # fused multi-chain (one kernel sweeps all chains per iteration)
+        # multi-chain: one sweep serves every chain per iteration
         self._mc_step = jax.jit(self._mc_step_impl, donate_argnums=(0,))
         self._mc_run_steps = jax.jit(
             lambda s, d, n: lax.fori_loop(
@@ -241,8 +184,6 @@ class HorseshoeSampler:
     def _refresh_impl(self, state, data):
         """Recompute eps = Y - mu - X beta with ONE fresh X pass (see
         SpikeSlabSampler._refresh_impl / ChainConfig.eps_refresh_every)."""
-        from ..ops import genotypes
-
         f32 = jnp.float32
         beta = state.beta.astype(f32)
         if not self.x_quantized:
@@ -439,62 +380,16 @@ class HorseshoeSampler:
         # ---- dense marker sweep
         z_arr = jax.random.normal(kz, (Mpad,), dt)
         if self.permutation == "blocked":
-            if (self.backend == "pallas" and self.jacobi > 1
-                    and self.jacobi_layout == "t"):
-                from ..ops.pallas_jacobi_t import horseshoe_jacobi_t_pallas
-
-                rho, inner = bs.strided_orders(korder, nb, B, self.jacobi)
-                eps, beta = horseshoe_jacobi_t_pallas(
-                    data.XT, data.gram, data.xsq, eps, state.beta,
-                    rho, inner, z_arr, state.lam, state.tau, state.c2,
-                    state.sigmaE, data.valid,
-                    J=self.jacobi, interpret=self._pallas_interpret,
-                    x_mean=data.x_mean if self.x_quantized else None,
-                    x_scale=data.x_scale if self.x_quantized else None,
-                    fold_affine=self._x_fold,
-                    x_xsum=data.x_colsum if self.x_quantized else None,
-                    row_valid=data.row_valid if self.x_packed else None,
-                    missing=self._x_miss)
-                lam, tau, c2, sigmaE = self._hyper_block(
-                    keys, eta, v, beta, eps, state.tau, data.valid)
-                return HorseshoeState(
-                    key=key, iteration=state.iteration + 1, mu=mu,
-                    beta=beta, eps=eps, sigmaE=sigmaE, lam=lam, v=v,
-                    tau=tau, eta=eta.astype(dt), c2=c2)
-            border, inner = bs.block_orders(korder, nb, B)
-            if self.backend == "pallas" and self.jacobi > 1:
-                from ..ops.pallas_jacobi import horseshoe_jacobi_pallas
-
-                eps, beta = horseshoe_jacobi_pallas(
-                    data.XT, data.gram, data.xsq, eps, state.beta,
-                    border, inner, z_arr, state.lam, state.tau, state.c2,
-                    state.sigmaE, data.valid,
-                    J=self.jacobi, interpret=self._pallas_interpret,
-                    x_mean=data.x_mean if self.x_quantized else None,
-                    x_scale=data.x_scale if self.x_quantized else None,
-                    fold_affine=self._x_fold,
-                    x_xsum=data.x_colsum if self.x_quantized else None,
-                    row_valid=data.row_valid if self.x_packed else None)
-            elif self.backend == "pallas":
-                from ..ops.pallas_sweep import horseshoe_sweep_pallas
-
-                eps, beta = horseshoe_sweep_pallas(
-                    data.XT, data.gram, data.xsq, eps, state.beta,
-                    border, inner, z_arr, state.lam, state.tau, state.c2,
-                    state.sigmaE, data.valid,
-                    interpret=self._pallas_interpret,
-                    x_mean=data.x_mean if self.x_quantized else None,
-                    x_scale=data.x_scale if self.x_quantized else None,
-                    fold_affine=self._x_fold,
-                    x_xsum=data.x_colsum if self.x_quantized else None,
-                    row_valid=data.row_valid if self.x_packed else None)
-            elif self.backend == "blocked":
-                eps, beta = bs.horseshoe_block_sweep(
-                    data.XT, data.gram, data.xsq, eps, state.beta,
-                    border, inner, z_arr, state.lam, state.tau, state.c2,
-                    state.sigmaE, data.valid)
+            rho, inner = bs.strided_orders(korder, nb, B, self.jacobi)
+            if self.backend == "blocked":
+                eps, beta = self._sweep(
+                    data, eps[None], state.beta[None], rho, inner,
+                    z_arr[None], state.lam[None], state.tau[None],
+                    state.c2[None], state.sigmaE[None])
+                eps, beta = eps[0], beta[0]
             else:
-                order = bs.flat_order(border, inner, B)
+                order = bs.flat_order(bs.strided_border(rho, self.jacobi),
+                                      inner, B)
                 eps, beta = horseshoe_sweep_scan(
                     data.XT, data.xsq, eps, state.beta, order, z_arr,
                     state.lam, state.tau, state.c2, state.sigmaE, data.valid)
@@ -513,11 +408,19 @@ class HorseshoeSampler:
             sigmaE=sigmaE, lam=lam, v=v, tau=tau,
             eta=eta.astype(dt), c2=c2)
 
+    def _sweep(self, data: HorseshoeData, eps, beta, rho, inner, z, lam,
+               tau, c2, sigmaE):
+        """The strided sweep over a leading chain axis (ops/strided.py)."""
+        return strided.horseshoe_strided_sweep(
+            (data.XT, data.x_mean, data.x_scale, data.row_valid), data.gram,
+            data.xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE,
+            data.valid, J=self.jacobi, kind=self._x_kind, fold=self._x_fold,
+            impl=self._xpass_impl)
+
     def _mc_step_impl(self, state: HorseshoeState,
                       data: HorseshoeData) -> HorseshoeState:
-        """Fused multi-chain iteration: all chains swept by ONE pallas
-        kernel (ops/pallas_multichain.horseshoe_sweep_pallas_mc); marker
-        order shared across chains, z streams independent + MARKER-indexed."""
+        """Fused multi-chain iteration: one strided sweep serves all
+        chains; marker order shared across chains, z streams independent."""
         dt = self.dtype
         Mpad, B, nb = self.Mpad, self.B, self.nb
         keys, mu, eps, eta, v = jax.vmap(
@@ -526,30 +429,9 @@ class HorseshoeSampler:
 
         z_arr = jax.vmap(
             lambda k: jax.random.normal(k, (Mpad,), dtype=dt))(kz)
-        common = dict(
-            interpret=self._pallas_interpret,
-            x_mean=data.x_mean if self.x_quantized else None,
-            x_scale=data.x_scale if self.x_quantized else None,
-            fold_affine=self._x_fold,
-            x_xsum=data.x_colsum if self.x_quantized else None,
-            row_valid=data.row_valid if self.x_packed else None)
-        if self.jacobi > 1 and self.jacobi_layout == "t":
-            from ..ops.pallas_jacobi_t import horseshoe_jacobi_t_pallas_mc
-
-            rho, inner = bs.strided_orders(korder[0], nb, B, self.jacobi)
-            eps, beta = horseshoe_jacobi_t_pallas_mc(
-                data.XT, data.gram, data.xsq, eps, state.beta,
-                rho, inner, z_arr, state.lam, state.tau, state.c2,
-                state.sigmaE, data.valid, J=self.jacobi,
-                missing=self._x_miss, **common)
-        else:
-            from ..ops.pallas_multichain import horseshoe_sweep_pallas_mc
-
-            border, inner = bs.block_orders(korder[0], nb, B)
-            eps, beta = horseshoe_sweep_pallas_mc(
-                data.XT, data.gram, data.xsq, eps, state.beta,
-                border, inner, z_arr, state.lam, state.tau, state.c2,
-                state.sigmaE, data.valid, **common)
+        rho, inner = bs.strided_orders(korder[0], nb, B, self.jacobi)
+        eps, beta = self._sweep(data, eps, state.beta, rho, inner, z_arr,
+                                state.lam, state.tau, state.c2, state.sigmaE)
         eps = eps.astype(dt)
         beta = beta.astype(dt)
 
@@ -563,13 +445,9 @@ class HorseshoeSampler:
 
     @property
     def supports_fused_chains(self) -> bool:
-        """The fused multi-chain kernel covers dense X, missing-free
-        quantized X (fold-affine), and 2-bit packed X with missing calls
-        on the transposed Jacobi path (same policy as SpikeSlabSampler)."""
-        return (self.backend == "pallas"
-                and (not self.x_quantized or self._x_fold
-                     or (self._x_miss and self.jacobi > 1
-                         and self.jacobi_layout == "t")))
+        """Fused multi-chain steps run on the blocked backend (any
+        storage); the scan reference has no chain axis."""
+        return self.backend == "blocked"
 
     def step_chains(self, state: HorseshoeState) -> HorseshoeState:
         return self._mc_step(state, self.data)
@@ -611,16 +489,6 @@ class HorseshoeSampler:
 
         return lax.scan(body, state, None, length=n_emits)
 
-    def _vemit_chunk_impl(self, state, data, n_emits, thinning):
-        def body(state, _):
-            state = lax.fori_loop(
-                0, thinning,
-                lambda i, st: jax.vmap(self._step_impl, in_axes=(0, None))(st, data),
-                state)
-            return state, jax.vmap(self._emit_one)(state)
-
-        return lax.scan(body, state, None, length=n_emits)
-
     def _mc_emit_chunk_impl(self, state, data, n_emits, thinning):
         def body(state, _):
             state = lax.fori_loop(
@@ -646,30 +514,21 @@ class HorseshoeSampler:
             on_chunk=on_chunk, refresh_fn=self.refresh_eps)
 
     def run_chains(self, key, n_chains: int, chain: ChainConfig, *,
-                   collect: bool = True, emit_chunk: int = 32,
-                   fused: Optional[bool] = None, sink=None,
+                   collect: bool = True, emit_chunk: int = 32, sink=None,
                    progress=None, on_chunk=None):
         """Run ``n_chains`` independent horseshoe chains batched on one
-        device; ``fused=True`` (default on the pallas backend) sweeps all
-        chains inside one kernel per iteration."""
+        device; one strided sweep serves all chains per iteration."""
         from .driver import run_chain
 
-        if fused is None:
-            fused = self.supports_fused_chains
-        if fused and not self.supports_fused_chains:
-            raise ValueError("fused multi-chain needs the pallas backend")
+        if not self.supports_fused_chains:
+            raise ValueError("run_chains needs the blocked backend")
         keys = jax.random.split(key, n_chains)
         state = jax.vmap(self.init)(keys)
-        if fused:
-            steps_fn = lambda st, n: self._mc_run_steps(st, self.data, n)
-            emit_fn = lambda st, n, t: self._mc_emit_chunk(st, self.data, n, t)
-        else:
-            steps_fn = lambda st, n: self._vrun_steps(st, self.data, n)
-            emit_fn = lambda st, n, t: self._vemit_chunk(st, self.data, n, t)
         return run_chain(
             state, chain,
-            steps_fn=steps_fn, emit_fn=emit_fn, sink=sink,
-            collect=collect, emit_chunk=emit_chunk,
+            steps_fn=lambda st, n: self._mc_run_steps(st, self.data, n),
+            emit_fn=lambda st, n, t: self._mc_emit_chunk(st, self.data, n, t),
+            sink=sink, collect=collect, emit_chunk=emit_chunk,
             progress=progress, on_chunk=on_chunk,
             refresh_fn=self.refresh_eps)
 

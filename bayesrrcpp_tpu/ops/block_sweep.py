@@ -1,23 +1,22 @@
-"""Gram-blocked marker sweeps -- the TPU-native fast path.
+"""Gram-blocked marker sweeps: the plain references of the fast path.
 
 The reference's marker loop is sequential because every update mutates the
 N-vector of residuals (reference: src/BayesRv2.cpp:186-245): per marker it
-pays one O(N) dot and one O(N) axpy.  On TPU that is HBM-bandwidth death by a
-thousand tiny vector ops.  This module restructures the sweep *exactly* (same
-math, same Markov kernel, only float reassociation differs) using per-block
-Gram matrices:
+pays one O(N) dot and one O(N) axpy.  The blocked form restructures the
+sweep *exactly* (same math, same Markov kernel, only float reassociation
+differs) using per-block Gram matrices:
 
 For a block b of B markers with X_b (N x B):
-  1. r = X_b' eps                      -- one (B,N)x(N,) MXU matmul
-  2. B sequential in-register updates: num_j = r_j + beta_j * xsq_j; after a
-     marker changes by delta, r <- r - G_b[:, j] * delta where
-     G_b = X_b' X_b is the (precomputed, static) block Gram matrix.  Each step
-     is O(B + K) VPU work instead of O(N).
-  3. eps <- eps - X_b' delta           -- one more MXU matmul
+  1. r = X_b' eps                      -- one (B,N)x(N,) product
+  2. B sequential updates: num_j = r_j + beta_j * xsq_j; after a marker
+     changes by delta, r <- r - G_b[:, j] * delta where G_b = X_b' X_b is
+     the (precomputed, static) block Gram matrix.  Each step is O(B + K)
+     work instead of O(N).
+  3. eps <- eps - X_b' delta           -- one more product
 
-HBM traffic per iteration drops from 3 strided passes over X to ~2 streaming
-passes (the matmuls), and all FLOPs land on the MXU.  The Gram blocks are
-computed once per chain (X is static) at O(M*B*N) flops and O(M*B) memory.
+Per iteration X is read twice, as two streaming products, instead of in
+3M strided vector operations.  The Gram blocks are computed once per chain
+(X is static) at O(M*B*N) flops and O(M*B) memory.
 
 The marker permutation is *block-restricted*: the block processing order and
 the order within each block are both shuffled per iteration, but markers do
@@ -26,6 +25,10 @@ systematic-scan Gibbs sampler with the same stationary distribution as the
 reference's full shuffle (src/BayesRv2.cpp:182); equality with the scan path
 under the *same* order is enforced by
 tests/test_bayesr.py::test_blocked_equals_scan_single_iteration.
+
+The samplers run the strided-rounds sweep of ops/strided.py; the functions
+here (``bayesr_block_sweep``, ``bayesr_jacobi_sweep`` and their horseshoe
+twins) are its plain references, plus the inner solves it shares.
 """
 from __future__ import annotations
 
@@ -81,14 +84,12 @@ def block_orders(key, nb, block_size, dtype=jnp.int32):
 
 
 def strided_orders(key, nb, block_size, J, dtype=jnp.int32):
-    """Permutations for the strided-rounds transposed sweep
-    (ops/pallas_jacobi_t.py): the round visit order rho (nr,) plus the
-    canonical within-block permutations (nb, B), drawn as argsort of iid
-    uniforms -- one fused draw instead of nb vmapped ``permutation()``
-    calls (~3.7 ms -> ~0.5 ms at nb=16k on v5e).  Round rho[r] sweeps
-    blocks {j*nr + rho[r] : j < J} (fixed strided partition; the
-    equivalent flat block_order is ``(nr*arange(J)[None,:] +
-    rho[:,None]).reshape(-1)``)."""
+    """Permutations for the strided-rounds sweep (ops/strided.py): the
+    round visit order rho (nr,) plus the within-block permutations (nb, B)
+    by block id, drawn as argsort of iid uniforms (one fused draw instead
+    of nb vmapped ``permutation()`` calls).  Round t sweeps blocks
+    {j*nr + rho[t] : j < J} (a fixed strided partition; the equivalent
+    flat block_order is ``strided_border(rho, J)``)."""
     nr = nb // J
     kb, ki = jax.random.split(key)
     rho = jax.random.permutation(kb, nr).astype(dtype)
@@ -231,10 +232,10 @@ def bayesr_jacobi_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     """Block-Jacobi spike-and-slab sweep: J blocks per round, each swept
     against the ROUND-START residual, all J rank-B updates applied at once.
 
-    Plain-XLA oracle for ops/pallas_jacobi.py (same math; float op order
-    differs).  Semantics match the mesh-sharded sampler with Dm = J
-    (parallel/sharded.py block-Jacobi rounds); J = 1 is exactly
-    bayesr_block_sweep.
+    Plain reference of ops/strided.bayesr_strided_sweep (with
+    ``block_order = strided_border(rho, J)``; same math, float op order
+    differs): a loop over the round's blocks, each against the saved
+    round-start residual.  J = 1 is exactly bayesr_block_sweep.
     """
     Mpad, N = XT_pad.shape
     nb, B, _ = gram.shape
@@ -248,14 +249,13 @@ def bayesr_jacobi_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     z_blk = z_arr.reshape(nr, J, B)
 
     def round_body(carry, xs):
-        eps, beta, labels, v, bacc = carry
+        eps0, beta, labels, v, bacc = carry   # all J blocks see eps0
         bs, inners, p_r, z_r = xs
-        eps0 = eps                       # all J blocks see the round start
-        upd = jnp.zeros_like(eps)
-        for j in range(J):
+
+        def block(j, c):
+            upd, beta, labels, v, bacc = c
             start = bs[j] * B
             Xb = lax.dynamic_slice_in_dim(XT_pad, start, B, axis=0)
-            Gb = gram[bs[j]]
             beta_b = lax.dynamic_slice_in_dim(beta, start, B)
             labels_b = lax.dynamic_slice_in_dim(labels, start, B)
             xsq_b = lax.dynamic_slice_in_dim(xsq_pad, start, B)
@@ -263,13 +263,16 @@ def bayesr_jacobi_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             valid_b = lax.dynamic_slice_in_dim(valid_pad, start, B)
             r = Xb @ eps0
             r, beta_b, labels_b, delta, v, bacc = spike_slab_inner_solve(
-                r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b, inners[j],
-                p_r[j], z_r[j], pi, cva, sigmaE, sigmaGG, v, bacc)
-            upd = upd + delta @ Xb
-            beta = lax.dynamic_update_slice_in_dim(beta, beta_b, start,
-                                                   axis=0)
-            labels = lax.dynamic_update_slice_in_dim(labels, labels_b, start,
-                                                     axis=0)
+                r, gram[bs[j]], beta_b, labels_b, xsq_b, gas_b, valid_b,
+                inners[j], p_r[j], z_r[j], pi, cva, sigmaE, sigmaGG, v,
+                bacc)
+            return (upd + delta @ Xb,
+                    lax.dynamic_update_slice_in_dim(beta, beta_b, start, 0),
+                    lax.dynamic_update_slice_in_dim(labels, labels_b, start,
+                                                    0), v, bacc)
+
+        upd, beta, labels, v, bacc = lax.fori_loop(
+            0, J, block, (jnp.zeros_like(eps0), beta, labels, v, bacc))
         return (eps0 - upd, beta, labels, v, bacc), None
 
     (eps, beta, labels, v, bacc), _ = lax.scan(
@@ -282,8 +285,8 @@ def horseshoe_jacobi_sweep(XT_pad, gram, xsq_pad, eps, beta_pad,
                            block_order, inner_perm, z_arr,
                            lam_pad, tau, c2, sigmaE, valid_pad, *, J: int):
     """Block-Jacobi dense horseshoe sweep: J blocks per round against the
-    round-start residual (plain-XLA oracle for
-    ops/pallas_jacobi.horseshoe_jacobi_pallas; J=1 is exactly
+    round-start residual (plain reference of
+    ops/strided.horseshoe_strided_sweep; J=1 is exactly
     horseshoe_block_sweep).  Reference per-marker math:
     src/HorseshoeR.cpp:219-240."""
     Mpad, N = XT_pad.shape
@@ -294,25 +297,25 @@ def horseshoe_jacobi_sweep(XT_pad, gram, xsq_pad, eps, beta_pad,
     z_blk = z_arr.reshape(nr, J, B)
 
     def round_body(carry, xs):
-        eps, beta = carry
+        eps0, beta = carry                    # all J blocks see eps0
         bs, inners, z_r = xs
-        eps0 = eps                       # all J blocks see the round start
-        upd = jnp.zeros_like(eps)
-        for j in range(J):
+
+        def block(j, c):
+            upd, beta = c
             start = bs[j] * B
             Xb = lax.dynamic_slice_in_dim(XT_pad, start, B, axis=0)
-            Gb = gram[bs[j]]
             beta_b = lax.dynamic_slice_in_dim(beta, start, B)
             xsq_b = lax.dynamic_slice_in_dim(xsq_pad, start, B)
             lam_b = lax.dynamic_slice_in_dim(lam_pad, start, B)
             valid_b = lax.dynamic_slice_in_dim(valid_pad, start, B)
             r = Xb @ eps0
             r, beta_b, delta = horseshoe_inner_solve(
-                r, Gb, beta_b, xsq_b, lam_b, valid_b, inners[j], z_r[j],
-                tau, c2, sigmaE)
-            upd = upd + delta @ Xb
-            beta = lax.dynamic_update_slice_in_dim(beta, beta_b, start,
-                                                   axis=0)
+                r, gram[bs[j]], beta_b, xsq_b, lam_b, valid_b, inners[j],
+                z_r[j], tau, c2, sigmaE)
+            return (upd + delta @ Xb,
+                    lax.dynamic_update_slice_in_dim(beta, beta_b, start, 0))
+
+        upd, beta = lax.fori_loop(0, J, block, (jnp.zeros_like(eps0), beta))
         return (eps0 - upd, beta), None
 
     (eps, beta), _ = lax.scan(round_body, (eps, beta_pad),

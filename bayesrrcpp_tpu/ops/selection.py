@@ -4,7 +4,7 @@ Vectorised re-derivation of the reference's per-marker categorical draw
 (reference: src/BayesRv2.cpp:195-242; identical logic at
 src/BayesRv2Groups.cpp:248-294 and src/BRv2Grstart.cpp:199-246), recast from a
 branchy accumulate-and-break loop into branch-free cumulative comparisons so it
-vectorises on the TPU VPU and is usable inside ``lax.scan`` / Pallas kernels.
+vectorises (over blocks and chains) and is usable inside ``lax.scan``.
 
 Semantics reproduced exactly, including the quirks:
 

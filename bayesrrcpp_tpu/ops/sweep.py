@@ -1,6 +1,6 @@
 """Sequential per-marker Gibbs sweeps as ``lax.scan`` (reference-exact path).
 
-This is the direct TPU transcription of the reference's hot marker loop
+This is the direct transcription of the reference's hot marker loop
 (reference: src/BayesRv2.cpp:186-245, src/BayesRv2Groups.cpp:232-298,
 src/HorseshoeR.cpp:219-240): one O(N) dot product and one O(N) rank-1 residual
 update per marker, sequential in the marker order because epsilon carries the
@@ -16,7 +16,7 @@ two residual updates into ``eps += X_j * (beta_old - beta_new)``
 (src/BayesRv2.cpp:243).
 
 Layout: X is stored transposed, ``XT`` of shape (M, N), so each marker is a
-contiguous row (TPU-friendly dynamic-slice instead of strided column gather).
+contiguous row (a dynamic-slice instead of a strided column gather).
 """
 from __future__ import annotations
 

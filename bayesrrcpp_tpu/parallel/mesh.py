@@ -5,8 +5,11 @@ The engine scales on a 2-D ``jax.sharding.Mesh`` with named axes:
 - ``"m"`` -- marker (model) parallelism: the genotype matrix is column-sharded
   in contiguous block groups; each m-slice sweeps its own Gram blocks.
 - ``"n"`` -- individual (data) parallelism: rows of X and the residual vector
-  are sharded; per-block correlations ``r = X_b' eps`` are psum-reduced over
-  ICI.
+  are sharded; per-block correlations ``r = X_b' eps`` are psum-reduced
+  across the devices.
+
+The mesh follows the algorithm alone: the cards of one host are joined all
+to all (NVLink), so no device order is better than another.
 
 The reference has no distributed analog at all (SURVEY.md section 2.4: its
 only concurrency is a 2-thread OpenMP producer/consumer split,

@@ -1,19 +1,20 @@
-"""Mesh-sharded BayesR sampler (multi-chip scaling via shard_map + psum).
+"""Mesh-sharded samplers (multi-device scaling via shard_map + psum).
 
 Scaling design (SURVEY.md sections 2.4, 7; no reference analog exists -- the
 reference holds X as one in-RAM Eigen matrix, src/BayesRv2.cpp:60, and cannot
 reach biobank scale):
 
 - **markers ("m" axis, model parallel)**: X is column-sharded in contiguous
-  groups of Gram blocks.  Each m-slice sweeps one of its own blocks per
-  round; the combined residual update ``eps -= sum_d X_{b_d}' delta_d`` is a
-  single ``psum`` over "m" per round.  Within a block the updates are exact
-  sequential Gibbs; across the Dm simultaneously-processed blocks they are
-  block-Jacobi (each block sees the residual as of the round start).  This is
-  the standard synchronous relaxation used by distributed BayesR
-  implementations; posterior equivalence is validated statistically in
-  tests/test_sharded.py.  With Dm=1 the kernel is exactly the single-device
-  blocked sweep.
+  groups of Gram blocks.  Each m-slice runs the strided-rounds sweep of
+  ops/strided.py over its own blocks, J per round; the combined residual
+  update ``eps -= sum_d X_slab_d' delta_d`` is a single ``psum`` over "m"
+  per round.  Within a block the updates are exact sequential Gibbs; across
+  the Dm*J simultaneously-processed blocks they are block-Jacobi (each
+  block sees the residual as of the round start).  This is the standard
+  synchronous relaxation used by distributed BayesR implementations;
+  posterior equivalence is validated statistically in
+  tests/test_sharded.py.  With Dm=1 the sweep is exactly the single-device
+  one.
 - **individuals ("n" axis, data parallel)**: rows of X / eps are sharded;
   every per-block correlation ``r = X_b' eps`` is a partial matmul plus a
   ``psum`` over "n".  This axis is *mathematically exact* (only float
@@ -34,31 +35,24 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map  # jax >= 0.7 new API
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        try:
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=check_vma)
-        except TypeError:  # older signature
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs)
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _old_shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        return _old_shard_map(f, mesh, in_specs=in_specs, out_specs=out_specs,
-                              check_rep=check_vma)
-
 from .. import distributions as dist
 from ..config import ChainConfig, GroupsConfig
 from ..models.bayesr import _as_2d_cva
 from ..models.state import SpikeSlabState
+from ..ops import block_sweep as bs
 from ..ops import genotypes
-from ..ops.block_sweep import spike_slab_inner_solve
+from ..ops import strided
+from ..ops.xpass import xpass_impl
 from .distributed import process_marker_range, put_global, put_process_shard
 from .mesh import AXIS_M, AXIS_N
+
+
+def _slice_plan(M: int, Dm: int, block_size: int):
+    """(J, B, Mpad) for Dm m-slices: each slice is planned like a
+    single-device sampler of ceil(M/Dm) markers (ops/strided.py)."""
+    m_slice = -(-M // Dm)
+    J, B = strided.jacobi_plan(m_slice, strided.base_block_size(M, block_size))
+    return J, B, strided.plan_mpad(m_slice, B, J) * Dm
 
 
 class ShardedMarkerData(NamedTuple):
@@ -75,7 +69,6 @@ class ShardedMarkerData(NamedTuple):
     fsq: jax.Array       # (F,)          replicated
     x_mean: jax.Array    # (Mpad,)       P(m)  ((0,) when dense)
     x_scale: jax.Array   # (Mpad,)       P(m)  ((0,) when dense)
-    x_colsum: jax.Array  # (Mpad,)       P(m)  ((0,) when dense)
     n_perm: jax.Array    # (Npad,)       P(n)  ((0,) unless packed)
 
 
@@ -83,9 +76,9 @@ def _packed_shard_setup(mesh, X, x_on_device, prepacked, transposed, x_stats,
                         has_missing, M, N, Mpad, Npad, B,
                         x_process_shard=False):
     """Shared packed-genotype device setup for the sharded samplers:
-    words sharded P(m), per-slice xsq/Gram/colsum built inside shard_map,
+    words sharded P(m), per-slice xsq/Gram built inside shard_map,
     lane permutation + row mask.  Returns (XT, x_mean, x_scale, xsq, gram,
-    x_colsum, row_valid, n_perm, n_perm_np, has_missing).
+    row_valid, n_perm, n_perm_np, has_missing).
 
     ``x_process_shard=True`` (multi-host): X/x_stats hold only THIS host's
     marker slice ``process_marker_range(mesh, Mpad)`` clipped to M -- each
@@ -121,7 +114,7 @@ def _packed_shard_setup(mesh, X, x_on_device, prepacked, transposed, x_stats,
             raise ValueError(
                 f"pre-packed words must pad lanes to 2048: got "
                 f"{words.shape[1]} words/marker, want {Npad // 16}")
-        pad_rows_n = (hi - lo) - words.shape[0] if x_process_shard else Mpad - M
+        pad_rows_n = (hi - lo if x_process_shard else Mpad) - words.shape[0]
         if pad_rows_n:
             pad_rows = ((0, pad_rows_n), (0, 0))
             if x_on_device:
@@ -149,23 +142,23 @@ def _packed_shard_setup(mesh, X, x_on_device, prepacked, transposed, x_stats,
         return genotypes.packed_stats_local(w_loc, m_loc, s_loc, N=N, B=B,
                                             varying=(AXIS_M,))
 
-    f = jax.jit(shard_map(
-        shard_fn, mesh,
+    f = jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh,
         in_specs=(P(AXIS_M), P(AXIS_M), P(AXIS_M)),
-        out_specs=(P(AXIS_M), P(AXIS_M, None, None), P(AXIS_M))))
-    xsq, gram, x_colsum = f(XT, x_mean, x_scale)
+        out_specs=(P(AXIS_M), P(AXIS_M, None, None))))
+    xsq, gram = f(XT, x_mean, x_scale)
     perm = genotypes._lane_perm(Npad)
     row_valid = put_global(mesh, P(AXIS_N), perm < N)
     n_perm = put_global(mesh, P(AXIS_N), perm.astype(np.int32))
-    return (XT, x_mean, x_scale, xsq, gram, x_colsum, row_valid, n_perm,
-            perm, has_missing)
+    return (XT, x_mean, x_scale, xsq, gram, row_valid, n_perm, perm,
+            has_missing)
 
 
 def _int8_shard_setup(mesh, X, transposed, x_stats, M, Mpad, B):
     """int8-code device setup for the sharded samplers: codes sharded
-    P(m) (full rows, (m, 1) mesh), per-slice xsq/Gram/colsum built inside
+    P(m) (full rows, (m, 1) mesh), per-slice xsq/Gram built inside
     shard_map (genotypes.int8_stats_local).  Returns
-    (XT, x_mean, x_scale, xsq, gram, x_colsum, has_missing)."""
+    (XT, x_mean, x_scale, xsq, gram, has_missing)."""
     from ..ops import genotypes
 
     if x_stats is not None:
@@ -196,12 +189,12 @@ def _int8_shard_setup(mesh, X, transposed, x_stats, M, Mpad, B):
         return genotypes.int8_stats_local(c_loc, m_loc, s_loc, B=B,
                                           varying=(AXIS_M,))
 
-    f = jax.jit(shard_map(
-        shard_fn, mesh,
+    f = jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh,
         in_specs=(P(AXIS_M), P(AXIS_M), P(AXIS_M)),
-        out_specs=(P(AXIS_M), P(AXIS_M, None, None), P(AXIS_M))))
-    xsq, gram, x_colsum = f(XT, x_mean, x_scale)
-    return XT, x_mean, x_scale, xsq, gram, x_colsum, has_missing
+        out_specs=(P(AXIS_M), P(AXIS_M, None, None))))
+    xsq, gram = f(XT, x_mean, x_scale)
+    return XT, x_mean, x_scale, xsq, gram, has_missing
 
 
 class ShardedSpikeSlabSampler:
@@ -209,13 +202,11 @@ class ShardedSpikeSlabSampler:
 
     def __init__(self, X, Y, cva, config, mesh: Mesh, *, g_assign=None,
                  fixed=None, dtype=jnp.float32, variant: Optional[str] = None,
-                 backend: str = "xla", chunk_blocks: Optional[int] = None,
                  x_dtype: str = "dense", x_stats=None, transposed=False,
                  n_individuals: Optional[int] = None,
                  has_missing: Optional[bool] = None,
                  x_process_shard: bool = False,
-                 n_markers: Optional[int] = None,
-                 split_sweep: Optional[bool] = None):
+                 n_markers: Optional[int] = None):
         if tuple(mesh.axis_names) != (AXIS_M, AXIS_N):
             raise ValueError("mesh must have axis names ('m', 'n')")
         if x_dtype not in ("dense", "int8", "2bit"):
@@ -224,31 +215,10 @@ class ShardedSpikeSlabSampler:
         self.mesh = mesh
         self.Dm = mesh.shape[AXIS_M]
         self.Dn = mesh.shape[AXIS_N]
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}")
-        if x_dtype in ("int8", "2bit") and backend != "pallas":
-            raise ValueError(f"x_dtype={x_dtype!r} requires backend='pallas'")
-        # pallas on an (m, n>1) mesh runs the SPLIT sweep: partial
-        # r = X'eps as a sharded XLA matmul (+psum over "n"), the
-        # VMEM-sized batched serial solve in a solve-only pallas kernel
-        # (ops/pallas_jacobi.bayesr_round_solve_pallas), and the rank-1
-        # eps update as a sharded matmul (+psum over "m").  Dn == 1 keeps
-        # the fused in-kernel path (eps resident in VMEM, X streamed
-        # twice); ``split_sweep=True`` forces the split path there too
-        # (used by the n-axis exactness tests).
-        self._split = (backend == "pallas"
-                       and (self.Dn > 1 if split_sweep is None
-                            else bool(split_sweep)))
-        if backend == "pallas" and self.Dn != 1 and x_dtype != "dense":
-            raise ValueError("backend='pallas' with Dn > 1 supports dense "
-                             "f32 X only (quantized codes: use an (m, 1) "
-                             "mesh, where code rows cannot row-shard)")
-        self.backend = backend
-        # blocks each m-slice sweeps between cross-slice residual syncs:
-        # 1 = tightest (one psum per block round), larger = fewer collectives
-        # at the cost of a wider block-Jacobi staleness window
-        self.chunk_blocks = chunk_blocks
-        self._pallas_interpret = jax.devices()[0].platform != "tpu"
+        if self.Dn != 1 and x_dtype != "dense":
+            raise ValueError("Dn > 1 supports dense X only (quantized code "
+                             "rows cannot row-shard: use an (m, 1) mesh)")
+        self._xpass_impl = xpass_impl(mesh.devices.flat[0].platform)
         if variant is None:
             variant = "groups" if isinstance(config, GroupsConfig) else "bayesr"
         self.variant = variant
@@ -256,6 +226,7 @@ class ShardedSpikeSlabSampler:
         self.dtype = jnp.dtype(dtype)
         self.x_packed = x_dtype == "2bit"
         self.x_quantized = x_dtype in ("int8", "2bit")
+        self._x_kind = x_dtype
 
         x_on_device = isinstance(X, jax.Array)
         if not x_on_device:
@@ -287,14 +258,15 @@ class ShardedSpikeSlabSampler:
                 N = X.shape[1]
         elif prepacked:
             # packed int32 words (M, ceil(N/2048)*128), marker-major, e.g.
-            # from io.bed.read_bed_packed
+            # from io.bed.read_bed_packed; n_markers < rows means the words
+            # arrive already padded to the planned marker count
             if not transposed or x_stats is None:
                 raise ValueError("pre-packed 2-bit input requires "
                                  "transposed=True and x_stats=(means, sds)")
             if has_missing is None:
                 raise ValueError("pre-packed 2-bit input requires "
                                  "has_missing= (read_bed_packed reports it)")
-            M = X.shape[0]
+            M = X.shape[0] if n_markers is None else int(n_markers)
             N = (X.shape[1] * 16 if n_individuals is None
                  else int(n_individuals))
         elif transposed:
@@ -314,28 +286,11 @@ class ShardedSpikeSlabSampler:
         fixed = np.asarray(fixed)
         F = fixed.shape[1]
 
-        B = max(8, min(config.block_size, 1 << max(1, (M - 1).bit_length())))
-        # (m, 1) pallas slices run the transposed strided-rounds kernel
-        # per slice (ops/pallas_jacobi_t.py -- the single-chip fast path;
-        # the comm-model projection assumes its per-chip rate), which
-        # re-sizes (J, B) per slice; quantized-with-missing data falls
-        # back to the serial local sweep at step time
-        self.jacobi_t = 1
-        if backend == "pallas" and not self._split:
-            from ..ops.pallas_jacobi import auto_jacobi_plan
-
-            jt, bt, lay = auto_jacobi_plan(-(-M // self.Dm), B)
-            if lay == "t":
-                B, self.jacobi_t = bt, jt
-        # marker axis padded to a (J-round x block) multiple per m-slice
-        # (8-aligned per-slice block count at scale; see models/bayesr.py
-        # on the non-8-aligned codegen blowup)
-        Jt = self.jacobi_t
-        unit = B * Jt * self.Dm
-        Mpad = -(-M // unit) * unit
-        if Mpad // (B * self.Dm) >= 64:
-            unit8 = (B * 8 * Jt // np.gcd(8, Jt)) * self.Dm
-            Mpad = -(-M // unit8) * unit8
+        self.jacobi, B, Mpad = _slice_plan(M, self.Dm, config.block_size)
+        if prepacked and X.shape[0] not in (M, Mpad) \
+                and not self.x_process_shard:
+            raise ValueError(f"pre-packed words have {X.shape[0]} rows; "
+                             f"expected {M} or the planned {Mpad}")
         if self.x_packed:
             # lanes pad to the packed tile (2048); individuals stay
             # unsharded (Dn == 1 enforced above)
@@ -352,13 +307,13 @@ class ShardedSpikeSlabSampler:
         empty_i = put_global(mesh, P(), np.zeros((0,), np.int32))
         n_perm_np = None
         if self.x_packed:
-            (XT, x_mean, x_scale, xsq, gram, x_colsum, row_valid, n_perm,
+            (XT, x_mean, x_scale, xsq, gram, row_valid, n_perm,
              n_perm_np, self._has_missing) = _packed_shard_setup(
                 mesh, X, x_on_device, prepacked, transposed, x_stats,
                 has_missing, M, N, Mpad, Npad, B,
                 x_process_shard=self.x_process_shard)
         elif self.x_quantized:   # int8 codes, full rows on an (m, 1) mesh
-            (XT, x_mean, x_scale, xsq, gram, x_colsum,
+            (XT, x_mean, x_scale, xsq, gram,
              self._has_missing) = _int8_shard_setup(
                 mesh, X, transposed, x_stats, M, Mpad, B)
             row_valid = put_global(mesh, P(AXIS_N), np.arange(Npad) < N)
@@ -385,13 +340,10 @@ class ShardedSpikeSlabSampler:
                 XT = put_global(mesh, P(AXIS_M, AXIS_N), XTh)
                 xsq = put_global(mesh, P(AXIS_M), xsq_h)
             gram = self._gram(XT)
-            x_mean = x_scale = x_colsum = empty_f
+            x_mean = x_scale = empty_f
             row_valid = put_global(mesh, P(AXIS_N), np.arange(Npad) < N)
             n_perm = empty_i
         self._x_fold = self.x_quantized and not self._has_missing
-        # 2-bit packed with missing calls keeps the transposed fast path
-        # via the exact sparse correction (ops/pallas_jacobi_t.py)
-        self._x_miss = self.x_packed and self._has_missing
 
         fixedTh = np.zeros((F, Npad), self.dtype)
         fixedTh[:, :N] = fixed.T
@@ -415,7 +367,7 @@ class ShardedSpikeSlabSampler:
             fixedT=put_global(mesh, P(None, AXIS_N), fixedTh),
             fsq=put_global(mesh, P(), (fixedTh.astype(np.float64) ** 2)
                            .sum(axis=1).astype(self.dtype)),
-            x_mean=x_mean, x_scale=x_scale, x_colsum=x_colsum, n_perm=n_perm,
+            x_mean=x_mean, x_scale=x_scale, n_perm=n_perm,
         )
         self.Y = put_global(mesh, P(AXIS_N), Yh)
 
@@ -429,7 +381,7 @@ class ShardedSpikeSlabSampler:
             xsq=P(AXIS_M), gram=P(AXIS_M, None, None),
             g_assign=P(AXIS_M), valid=P(AXIS_M), row_valid=P(AXIS_N),
             cva=P(), prior_pi=P(), fixedT=P(None, AXIS_N), fsq=P(),
-            x_mean=mspec, x_scale=mspec, x_colsum=mspec,
+            x_mean=mspec, x_scale=mspec,
             n_perm=P(AXIS_N) if self.x_packed else P())
 
         self._run_steps_cache = {}
@@ -443,15 +395,15 @@ class ShardedSpikeSlabSampler:
             g_part = lax.map(lambda xb: xb @ xb.T, blocks)
             return lax.psum(g_part, AXIS_N)
 
-        f = jax.jit(shard_map(gram_shard, self.mesh,
+        f = jax.jit(jax.shard_map(gram_shard, mesh=self.mesh,
                               in_specs=P(AXIS_M, AXIS_N),
                               out_specs=P(AXIS_M, None, None)))
         return f(XT)
 
     def _xsq_shard(self, XT):
-        f = jax.jit(shard_map(
+        f = jax.jit(jax.shard_map(
             lambda xt_loc: lax.psum(jnp.sum(xt_loc * xt_loc, axis=1), AXIS_N),
-            self.mesh, in_specs=P(AXIS_M, AXIS_N), out_specs=P(AXIS_M)))
+            mesh=self.mesh, in_specs=P(AXIS_M, AXIS_N), out_specs=P(AXIS_M)))
         return f(XT)
 
     def _prior_pi(self, cva2: np.ndarray) -> np.ndarray:
@@ -534,270 +486,38 @@ class ShardedSpikeSlabSampler:
             (eps, alpha), _ = lax.scan(fbody, (eps, alpha), (forder, zf))
         return keys, mu, eps, alpha, sigmaF
 
+    def _sweep(self, data: ShardedMarkerData, eps, beta, labels, rho, inner,
+               p, z, pi, sigmaE, sigmaGG):
+        """This slice's strided sweep over a leading chain axis, with r
+        psum'd over "n" and the eps update psum'd over "m" each round."""
+        return strided.bayesr_strided_sweep(
+            (data.XT, data.x_mean, data.x_scale, data.row_valid), data.gram,
+            data.xsq, eps, beta, labels, rho, inner, p, z, pi, data.cva,
+            sigmaE, sigmaGG, data.g_assign, data.valid, J=self.jacobi,
+            kind=self._x_kind, fold=self._x_fold, impl=self._xpass_impl,
+            reduce_r=lambda r: lax.psum(r, AXIS_N),
+            reduce_eps=lambda u: lax.psum(u, AXIS_M))
+
     def _step_local(self, state: SpikeSlabState, data: ShardedMarkerData):
         """One Gibbs iteration on per-device shards (runs inside shard_map)."""
-        cfg = self.config
-        N, F, G = self.N, self.F, self.G
         B, nb_loc, Mloc = self.B, self.nb_loc, self.Mloc
         dt = self.dtype
         im = lax.axis_index(AXIS_M)
         keys, mu, eps, alpha, sigmaF = self._pre_marker(state, data)
         (key, kmu, kforder, kfz, ksweep, ksE, ksF, ksG, kpi) = keys
 
-        # ---- marker sweep: one local block per round, psum'd eps update
-        key_m = jax.random.fold_in(ksweep, im)
-        kb, ki, kp, kz = jax.random.split(key_m, 4)
-        p_arr = jax.random.uniform(kp, (nb_loc, B), dtype=dt)
-        z_arr = jax.random.normal(kz, (nb_loc, B), dt)
-        use_t = (self.backend == "pallas" and not self._split
-                 and self.jacobi_t > 1
-                 and (not self.x_quantized or self._x_fold
-                      or self._x_miss))
-        if use_t:
-            # transposed strided-rounds kernel per slice: rho = round
-            # visit order over the slice's fixed strided partition, inner
-            # = canonical within-block permutations (one fused argsort
-            # draw -- nb_loc vmapped permutation() calls cost ~ms)
-            rho = jax.random.permutation(kb, nb_loc // self.jacobi_t)
-            inner_c = jnp.argsort(
-                jax.random.uniform(ki, (nb_loc, B)), axis=1)
-        else:
-            border = jax.random.permutation(kb, nb_loc)
-            inner = jax.vmap(lambda k: jax.random.permutation(k, B))(
-                jax.random.split(ki, nb_loc))
-
-        if self.backend == "pallas":
-            if self._split:
-                eps, beta, labels, v, bacc = self._pallas_split_sweep(
-                    state, data, eps, border, inner, p_arr, z_arr)
-            elif use_t:
-                eps, beta, labels, v, bacc = self._pallas_local_sweep_t(
-                    state, data, eps, rho, inner_c, p_arr, z_arr)
-            else:
-                eps, beta, labels, v, bacc = self._pallas_local_sweep(
-                    state, data, eps, border, inner, p_arr, z_arr)
-            return self._hypers(state, data, key, eps, mu, alpha, sigmaF,
-                                beta, labels, v, bacc, ksE, ksF, ksG, kpi)
-
-        # carries that accumulate per-m-slice values must be marked varying
-        # over "m" for shard_map's varying-axis tracking
-        v0 = lax.pcast(jnp.zeros((G, self.K), dt), (AXIS_M,), to="varying")
-        bacc0 = lax.pcast(jnp.zeros((G,), dt), (AXIS_M,), to="varying")
-
-        def round_body(carry, xs):
-            eps, beta, labels, v, bacc = carry
-            b, inr, p_b, z_b = xs
-            start = b * B
-            Xb = lax.dynamic_slice_in_dim(data.XT, start, B, axis=0)
-            Gb = data.gram[b]
-            beta_b = lax.dynamic_slice_in_dim(beta, start, B)
-            labels_b = lax.dynamic_slice_in_dim(labels, start, B)
-            xsq_b = lax.dynamic_slice_in_dim(data.xsq, start, B)
-            gas_b = lax.dynamic_slice_in_dim(data.g_assign, start, B)
-            valid_b = lax.dynamic_slice_in_dim(data.valid, start, B)
-            r = lax.psum(Xb @ eps, AXIS_N)
-            r, beta_b, labels_b, delta, v, bacc = spike_slab_inner_solve(
-                r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b, inr, p_b, z_b,
-                state.pi, data.cva, state.sigmaE, state.sigmaGG, v, bacc)
-            eps = eps - lax.psum(delta @ Xb, AXIS_M)
-            beta = lax.dynamic_update_slice_in_dim(beta, beta_b, start, axis=0)
-            labels = lax.dynamic_update_slice_in_dim(labels, labels_b, start,
-                                                     axis=0)
-            return (eps, beta, labels, v, bacc), None
-
-        (eps, beta, labels, v, bacc), _ = lax.scan(
-            round_body, (eps, state.beta, state.labels, v0, bacc0),
-            (border, inner, p_arr, z_arr))
-
+        # ---- marker sweep: per-slice visit order and randoms
+        korder, kp, kz = jax.random.split(jax.random.fold_in(ksweep, im), 3)
+        rho, inner = bs.strided_orders(korder, nb_loc, B, self.jacobi)
+        p_arr = jax.random.uniform(kp, (Mloc,), dtype=dt)
+        z_arr = jax.random.normal(kz, (Mloc,), dt)
+        res = self._sweep(data, eps[None], state.beta[None],
+                          state.labels[None], rho, inner, p_arr[None],
+                          z_arr[None], state.pi[None], state.sigmaE[None],
+                          state.sigmaGG[None])
+        eps, beta, labels, v, bacc = (a[0] for a in res)
         return self._hypers(state, data, key, eps, mu, alpha, sigmaF,
                             beta, labels, v, bacc, ksE, ksF, ksG, kpi)
-
-    def _pallas_local_sweep(self, state, data, eps, border, inner,
-                            p_arr, z_arr):
-        """Local Gram-blocked sweep via the pallas kernel, in chunks of
-        ``chunk_blocks`` blocks with one cross-slice psum of the residual
-        update per chunk (requires an (m, 1) mesh)."""
-        from ..ops.pallas_sweep import bayesr_sweep_pallas
-
-        nb_loc, B, G, K = self.nb_loc, self.B, self.G, self.K
-        dt = self.dtype
-        C = min(self.chunk_blocks or 128, nb_loc)
-        beta, labels = state.beta, state.labels
-        v = lax.pcast(jnp.zeros((G, K), dt), (AXIS_M,), to="varying")
-        bacc = lax.pcast(jnp.zeros((G,), dt), (AXIS_M,), to="varying")
-        p_flat = p_arr.reshape(-1)
-        z_flat = z_arr.reshape(-1)
-        for c0 in range(0, nb_loc, C):
-            cb = min(C, nb_loc - c0)
-            border_c = lax.dynamic_slice_in_dim(border, c0, cb)
-            inner_c = lax.dynamic_slice_in_dim(inner, c0, cb)
-            # positions are local to the chunk; gather the chunk's own
-            # per-position randoms from the flat per-slice stream
-            p_c = lax.dynamic_slice_in_dim(p_flat, c0 * B, cb * B)
-            z_c = lax.dynamic_slice_in_dim(z_flat, c0 * B, cb * B)
-            res = bayesr_sweep_pallas(
-                data.XT, data.gram, data.xsq, eps, beta, labels,
-                border_c, inner_c, p_c, z_c,
-                state.pi, data.cva, state.sigmaE, state.sigmaGG,
-                data.g_assign, data.valid,
-                interpret=self._pallas_interpret, inner_positional=True,
-                x_mean=data.x_mean if self.x_quantized else None,
-                x_scale=data.x_scale if self.x_quantized else None,
-                fold_affine=self._x_fold,
-                x_xsum=data.x_colsum if self.x_quantized else None,
-                row_valid=data.row_valid if self.x_packed else None)
-            delta_eps = res.eps - eps
-            eps = eps + lax.psum(delta_eps, AXIS_M)
-            beta, labels = res.beta, res.labels
-            v = v + res.v
-            bacc = bacc + res.beta_acum
-        return eps, beta, labels, v, bacc
-
-    def _pallas_local_sweep_t(self, state, data, eps, rho, inner_c,
-                              p_arr, z_arr):
-        """Local sweep via the transposed strided-rounds kernel
-        (ops/pallas_jacobi_t.py): each m-slice sweeps chunks of rounds of
-        its fixed strided partition with ONE cross-slice eps psum per
-        chunk -- the same collective structure as _pallas_local_sweep
-        (and the one COMM_MODEL_r04.json models) at the round-4 per-chip
-        kernel rate."""
-        from ..ops.pallas_jacobi_t import (_merge_lane_rows,
-                                           bayesr_jacobi_t_rounds,
-                                           build_strided_operands)
-
-        J, B, G, K = self.jacobi_t, self.B, self.G, self.K
-        nb_loc, Mloc = self.nb_loc, self.Mloc
-        nr = nb_loc // J
-        dt = self.dtype
-        f32 = jnp.float32
-        fold = self._x_fold
-        missing = self._x_miss
-
-        ops = build_strided_operands(
-            data.gram, data.xsq, data.g_assign, data.valid,
-            p_arr.reshape(-1), z_arr.reshape(-1), state.pi, data.cva,
-            state.sigmaE, state.sigmaGG, state.beta, state.labels,
-            inner_c, B=B, J=J,
-            x_mean=data.x_mean if self.x_quantized else None,
-            x_scale=data.x_scale if self.x_quantized else None,
-            x_xsum=data.x_colsum if self.x_quantized else None,
-            fold=fold, missing=missing)
-        eps2d = eps.astype(f32).reshape(1, -1)
-        if self.x_packed:
-            lane_mask = data.row_valid.astype(f32).reshape(1, -1)
-
-        # rounds per psum: keep the cross-slice window at ~chunk_blocks
-        # blocks (default 128 -> one round per chunk at J=128).  On a
-        # single m-slice the psum is the identity and chunking is pure
-        # per-call dispatch overhead (~123 pallas calls/iter at the
-        # biobank shape -- the round-4 "21% sharding tax"), so Dm == 1
-        # runs ALL rounds in ONE kernel call (bitwise-identical
-        # semantics: rounds are sequential inside the kernel too).
-        if self.Dm == 1:
-            nrc = nr
-        else:
-            nrc = max(1, min(nr, -(-min(self.chunk_blocks or 128, nb_loc)
-                                   // J)))
-            while nr % nrc:
-                nrc -= 1
-        v0 = lax.pcast(jnp.zeros((G, K), f32), (AXIS_M,), to="varying")
-        bacc0 = lax.pcast(jnp.zeros((G,), f32), (AXIS_M,), to="varying")
-        beta_sl0 = jnp.zeros((nr, J, B), f32)
-        kv_sl0 = jnp.zeros((nr, J, B), f32)
-
-        def chunk_body(carry, rho_c):
-            eps2d, beta_sl, kv_sl, v, bacc = carry
-            eps_new, beta_c, kv_c, v_c, bacc_c = bayesr_jacobi_t_rounds(
-                data.XT, ops, rho_c, eps2d, state.sigmaE,
-                J=J, B=B, K=K, G=G, nr_total=nr, packed=self.x_packed,
-                fold=fold, missing=missing,
-                interpret=self._pallas_interpret,
-                visit_out=(nrc != nr))
-            delta = eps_new[0] - eps2d[0]
-            eps_next = eps2d[0] + lax.psum(delta, AXIS_M)
-            if self.x_packed and (fold or missing):
-                eps_next = eps_next * lane_mask[0]
-            if nrc == nr:
-                # rho-indexed output maps landed the slabs in canonical
-                # order -- no host-side permutation scatter
-                beta_sl, kv_sl = beta_c, kv_c
-            else:
-                beta_sl = beta_sl.at[rho_c].set(beta_c)
-                kv_sl = kv_sl.at[rho_c].set(kv_c)
-            return ((eps_next.reshape(1, -1), beta_sl, kv_sl,
-                     v + v_c.reshape(G, K), bacc + bacc_c.reshape(G)),
-                    None)
-
-        carry = (eps2d, beta_sl0, kv_sl0, v0, bacc0)
-        (eps2d, beta_sl, kv_sl, v, bacc), _ = lax.scan(
-            chunk_body, carry, rho.reshape(nr // nrc, nrc).astype(jnp.int32))
-
-        beta = _merge_lane_rows(beta_sl, Mloc).astype(dt)
-        kv = _merge_lane_rows(kv_sl, Mloc)
-        labels = jnp.where(kv >= 0.0, kv.astype(jnp.int32), state.labels)
-        return (eps2d[0].astype(dt), beta, labels, v.astype(dt),
-                bacc.astype(dt))
-
-    def _pallas_split_sweep(self, state, data, eps, border, inner,
-                            p_arr, z_arr):
-        """Row-shardable (Dn > 1) pallas sweep: per round of J blocks,
-        r = X'eps is a sharded XLA matmul psum'd over "n", the batched
-        serial solve runs in the solve-only kernel (identical math to the
-        single-chip Jacobi kernel's solve phase), and the combined rank-1
-        eps update is a sharded matmul psum'd over "m".  Cross-block
-        semantics: exact sequential within a block, block-Jacobi across
-        the Dm*J blocks of a round -- the same relaxation as the fused
-        (m, 1) path per chunk."""
-        from ..ops.pallas_jacobi import (bayesr_round_solve_pallas,
-                                         build_pkg_jacobi)
-
-        nb_loc, B, G, K = self.nb_loc, self.B, self.G, self.K
-        dt = self.dtype
-        J = min(self.chunk_blocks or 8, nb_loc)
-        while nb_loc % J:       # largest divisor of the block count <= J
-            J -= 1
-        nr = nb_loc // J
-        # build_pkg_jacobi wants inner by BLOCK id; _step_local draws it by
-        # sweep position (border is a permutation, so scatter re-keys it)
-        inner_by_block = jnp.zeros_like(inner).at[border].set(inner)
-        pkg, inner_sel = build_pkg_jacobi(
-            data.xsq, data.g_assign, data.valid,
-            p_arr.reshape(-1), z_arr.reshape(-1),
-            state.pi, data.cva, state.sigmaE, state.sigmaGG,
-            border, inner_by_block, B=B, J=J)
-        bsel = border.reshape(nr, J).astype(jnp.int32)
-        lane = jnp.arange(B, dtype=jnp.int32)
-        Nloc = data.XT.shape[1]
-        XTb = data.XT.reshape(nb_loc, B, Nloc)
-        v0 = lax.pcast(jnp.zeros((G, K), dt), (AXIS_M,), to="varying")
-        bacc0 = lax.pcast(jnp.zeros((G,), dt), (AXIS_M,), to="varying")
-
-        def round_body(carry, xs):
-            eps, beta, labels, v, bacc = carry
-            bs_j, pkg_r, inner_r = xs
-            idx = (bs_j[:, None] * B + lane[None, :]).reshape(-1)  # (J*B,)
-            Xc = jnp.take(XTb, bs_j, axis=0).reshape(J * B, Nloc)
-            r = lax.psum(Xc @ eps, AXIS_N).reshape(J, B)
-            gram_r = jnp.take(data.gram, bs_j, axis=0)
-            beta_r = jnp.take(beta, idx).reshape(J, B)
-            labels_r = jnp.take(labels, idx).reshape(J, B)
-            gas_r = jnp.take(data.g_assign, idx).reshape(J, B)
-            dlane, beta_new, labels_new, v_r, bacc_r = \
-                bayesr_round_solve_pallas(
-                    r, gram_r, beta_r, labels_r, gas_r, inner_r, pkg_r,
-                    state.sigmaE, K=K, G=G,
-                    interpret=self._pallas_interpret)
-            upd = (dlane.reshape(1, J * B).astype(dt) @ Xc)[0]
-            eps = eps - lax.psum(upd, AXIS_M)
-            beta = beta.at[idx].set(beta_new.reshape(-1).astype(dt))
-            labels = labels.at[idx].set(labels_new.reshape(-1))
-            return (eps, beta, labels, v + v_r.astype(dt),
-                    bacc + bacc_r.astype(dt)), None
-
-        (eps, beta, labels, v, bacc), _ = lax.scan(
-            round_body, (eps, state.beta, state.labels, v0, bacc0),
-            (bsel, pkg, inner_sel))
-        return eps, beta, labels, v, bacc
 
     def _hypers(self, state, data, key, eps, mu, alpha, sigmaF,
                 beta, labels, v, bacc, ksE, ksF, ksG, kpi):
@@ -840,72 +560,30 @@ class ShardedSpikeSlabSampler:
     def _mc_step_local(self, state: SpikeSlabState, data: ShardedMarkerData):
         """Fused multi-chain Gibbs iteration on per-device shards: state
         leaves carry a leading chain axis C (sharded like the single-chain
-        state plus a replicated chain axis); each m-slice sweeps its local
-        blocks for ALL chains in ONE pallas kernel per chunk
-        (ops/pallas_multichain.py), with one cross-slice residual psum per
-        chunk.  Requires the pallas backend on an (m, 1) mesh -- the
-        standard >= 4-chain R-hat workflow at pod scale."""
-        from ..ops.pallas_multichain import bayesr_sweep_pallas_mc
-
-        nb_loc, B, G, K = self.nb_loc, self.B, self.G, self.K
+        state plus a replicated chain axis); one strided sweep per slice
+        serves all chains, with one cross-slice (C, Npad) eps psum per
+        round."""
+        B, nb_loc = self.B, self.nb_loc
         dt = self.dtype
-        C = state.mu.shape[0]
         im = lax.axis_index(AXIS_M)
         keys, mu, eps, alpha, sigmaF = jax.vmap(
             self._pre_marker, in_axes=(0, None))(state, data)
         key, ksweep = keys[:, 0], keys[:, 4]
         ksE, ksF, ksG, kpi = keys[:, 5], keys[:, 6], keys[:, 7], keys[:, 8]
 
-        # shared visit order from chain 0; independent per-chain p/z
-        # streams (marker-indexed for the row-layout mc kernel, position-
-        # indexed canonical-slab for the transposed one)
-        key_m = jax.random.fold_in(ksweep[0], im)
-        kb, ki = jax.random.split(key_m, 2)
-        kpz = jax.vmap(lambda k: jax.random.split(
-            jax.random.fold_in(k, im), 2))(ksweep)          # (C, 2, 2)
+        # shared visit order from chain 0; independent per-chain p/z, each
+        # drawn as _step_local draws them (chain 0 steps as it would alone)
+        kopz = jax.vmap(lambda k: jax.random.split(
+            jax.random.fold_in(k, im), 3))(ksweep)          # (C, 3, 2)
+        korder = kopz[0, 0]
         p_arr = jax.vmap(lambda k: jax.random.uniform(
-            k, (self.Mloc,), dtype=dt))(kpz[:, 0])
+            k, (self.Mloc,), dtype=dt))(kopz[:, 1])
         z_arr = jax.vmap(lambda k: jax.random.normal(
-            k, (self.Mloc,), dt))(kpz[:, 1])
-
-        use_t = (not self._split and self.jacobi_t > 1
-                 and (not self.x_quantized or self._x_fold
-                      or self._x_miss))
-        if use_t:
-            # fused multi-chain TRANSPOSED strided-rounds sweep: X
-            # streamed once per chunk per chain group, one cross-slice
-            # (C, Npad) eps psum per chunk (the round-4 VERDICT ask #2)
-            rho = jax.random.permutation(kb, nb_loc // self.jacobi_t)
-            inner_c = jnp.argsort(
-                jax.random.uniform(ki, (nb_loc, B)), axis=1)
-            eps, beta, labels, v, bacc = self._mc_local_sweep_t(
-                state, data, eps, rho, inner_c, p_arr, z_arr)
-        else:
-            border = jax.random.permutation(kb, nb_loc)
-            inner = jax.vmap(lambda k: jax.random.permutation(k, B))(
-                jax.random.split(ki, nb_loc))
-            Cchunk = min(self.chunk_blocks or 128, nb_loc)
-            beta, labels = state.beta, state.labels
-            v = lax.pcast(jnp.zeros((C, G, K), dt), (AXIS_M,), to="varying")
-            bacc = lax.pcast(jnp.zeros((C, G), dt), (AXIS_M,), to="varying")
-            for c0 in range(0, nb_loc, Cchunk):
-                cb = min(Cchunk, nb_loc - c0)
-                res = bayesr_sweep_pallas_mc(
-                    data.XT, data.gram, data.xsq, eps, beta, labels,
-                    lax.dynamic_slice_in_dim(border, c0, cb),
-                    lax.dynamic_slice_in_dim(inner, c0, cb),
-                    p_arr, z_arr, state.pi, data.cva, state.sigmaE,
-                    state.sigmaGG, data.g_assign, data.valid,
-                    interpret=self._pallas_interpret,
-                    x_mean=data.x_mean if self.x_quantized else None,
-                    x_scale=data.x_scale if self.x_quantized else None,
-                    fold_affine=self._x_fold,
-                    x_xsum=data.x_colsum if self.x_quantized else None,
-                    row_valid=data.row_valid if self.x_packed else None)
-                eps = eps + lax.psum(res.eps.astype(dt) - eps, AXIS_M)
-                beta, labels = res.beta.astype(dt), res.labels
-                v = v + res.v.astype(dt)
-                bacc = bacc + res.beta_acum.astype(dt)
+            k, (self.Mloc,), dt))(kopz[:, 2])
+        rho, inner = bs.strided_orders(korder, nb_loc, B, self.jacobi)
+        eps, beta, labels, v, bacc = self._sweep(
+            data, eps, state.beta, state.labels, rho, inner, p_arr, z_arr,
+            state.pi, state.sigmaE, state.sigmaGG)
 
         def hyp(state_c, key_c, eps_c, mu_c, alpha_c, sigmaF_c, beta_c,
                 labels_c, v_c, bacc_c, ksE_c, ksF_c, ksG_c, kpi_c):
@@ -954,93 +632,12 @@ class ShardedSpikeSlabSampler:
                                     in_axes=(0, None, None))(st, d, y)
             else:
                 body = self._refresh_local
-            fn = jax.jit(shard_map(
-                body, self.mesh,
+            fn = jax.jit(jax.shard_map(
+                body, mesh=self.mesh,
                 in_specs=(specs, self.data_specs, P(AXIS_N)),
                 out_specs=specs, check_vma=False))
             self._run_steps_cache[kk] = fn
         return fn(state, self.data, self.Y)
-
-    def _mc_local_sweep_t(self, state, data, eps, rho, inner_c, p_arr,
-                          z_arr):
-        """Fused multi-chain local sweep via the TRANSPOSED strided-rounds
-        mc kernel (ops/pallas_jacobi_t.bayesr_jacobi_t_mc_rounds): chunks
-        of rounds with one cross-slice (C, Npad) eps psum per chunk; X
-        streamed once per (chunk, chain-group).  Same collective structure
-        as _pallas_local_sweep_t with the psum payload scaled by C."""
-        import os
-
-        from ..ops.pallas_jacobi_t import (bayesr_jacobi_t_mc_rounds,
-                                           build_strided_operands_mc)
-
-        J, B, G, K = self.jacobi_t, self.B, self.G, self.K
-        nb_loc, Mloc = self.nb_loc, self.Mloc
-        nr = nb_loc // J
-        dt = self.dtype
-        f32 = jnp.float32
-        fold, missing = self._x_fold, self._x_miss
-        C = state.mu.shape[0]
-        CG = int(os.environ.get("BAYESR_MC_GROUP", "4"))
-        groups = [(c0, min(c0 + CG, C)) for c0 in range(0, C, CG)]
-
-        ops_g = [build_strided_operands_mc(
-            data.gram, data.xsq, data.g_assign, data.valid,
-            p_arr[c0:c1], z_arr[c0:c1], state.pi[c0:c1], data.cva,
-            state.sigmaE[c0:c1], state.sigmaGG[c0:c1], state.beta[c0:c1],
-            inner_c, B=B, J=J,
-            x_mean=data.x_mean if self.x_quantized else None,
-            x_scale=data.x_scale if self.x_quantized else None,
-            x_xsum=data.x_colsum if self.x_quantized else None,
-            fold=fold, missing=missing) for c0, c1 in groups]
-        if self.x_packed:
-            lane_mask = data.row_valid.astype(f32)
-
-        if self.Dm == 1:
-            nrc = nr          # single slice: psum is identity, one call
-        else:
-            nrc = max(1, min(nr, -(-min(self.chunk_blocks or 128, nb_loc)
-                                   // J)))
-            while nr % nrc:
-                nrc -= 1
-        v0 = lax.pcast(jnp.zeros((C, G * K), f32), (AXIS_M,), to="varying")
-        bacc0 = lax.pcast(jnp.zeros((C, G), f32), (AXIS_M,), to="varying")
-        beta_sl0 = jnp.zeros((nr, C * J, B), f32)
-        kv_sl0 = jnp.zeros((nr, C * J, B), f32)
-        epsC0 = eps.astype(f32)                             # (C, Npad)
-
-        def chunk_body(carry, rho_c):
-            epsC, beta_sl, kv_sl, v, bacc = carry
-            parts = [bayesr_jacobi_t_mc_rounds(
-                data.XT, ops, rho_c, epsC[c0:c1],
-                J=J, B=B, K=K, G=G, C=c1 - c0, nr_total=nr,
-                packed=self.x_packed, fold=fold, missing=missing,
-                interpret=self._pallas_interpret)
-                for (c0, c1), ops in zip(groups, ops_g)]
-            eps_new = jnp.concatenate([p[0] for p in parts], axis=0)
-            eps_next = epsC + lax.psum(eps_new - epsC, AXIS_M)
-            if self.x_packed and (fold or missing):
-                eps_next = eps_next * lane_mask[None, :]
-            # group slabs are contiguous chain bands on the C*J row axis
-            beta_c = jnp.concatenate([p[1] for p in parts], axis=1)
-            kv_c = jnp.concatenate([p[2] for p in parts], axis=1)
-            v_c = jnp.concatenate([p[3] for p in parts], axis=0)
-            bacc_c = jnp.concatenate([p[4] for p in parts], axis=0)
-            return ((eps_next, beta_sl.at[rho_c].set(beta_c),
-                     kv_sl.at[rho_c].set(kv_c), v + v_c, bacc + bacc_c),
-                    None)
-
-        carry = (epsC0, beta_sl0, kv_sl0, v0, bacc0)
-        (epsC, beta_sl, kv_sl, v, bacc), _ = lax.scan(
-            chunk_body, carry,
-            rho.reshape(nr // nrc, nrc).astype(jnp.int32))
-
-        beta = (beta_sl.reshape(nr, C, J, B).transpose(1, 2, 0, 3)
-                .reshape(C, Mloc)).astype(dt)
-        kv = (kv_sl.reshape(nr, C, J, B).transpose(1, 2, 0, 3)
-              .reshape(C, Mloc))
-        labels = jnp.where(kv >= 0.0, kv.astype(jnp.int32), state.labels)
-        return (epsC.astype(dt), beta, labels,
-                v.reshape(C, G, K).astype(dt), bacc.astype(dt))
 
     def init_chains(self, key, n_chains: int) -> SpikeSlabState:
         """Batched fresh-chain init: state leaves gain a leading chain axis
@@ -1064,7 +661,7 @@ class ShardedSpikeSlabSampler:
                 return lax.fori_loop(
                     0, n, lambda i, s: self._mc_step_local(s, data), state)
 
-            fn = jax.jit(shard_map(body, self.mesh,
+            fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                    in_specs=(specs, self.data_specs),
                                    out_specs=specs, check_vma=False),
                          donate_argnums=(0,))
@@ -1072,10 +669,7 @@ class ShardedSpikeSlabSampler:
         return fn
 
     def step_chains(self, state: SpikeSlabState) -> SpikeSlabState:
-        """One fused multi-chain iteration (state leaves batched over C);
-        pallas backend on an (m, 1) mesh only."""
-        if self.backend != "pallas":
-            raise ValueError("step_chains requires backend='pallas'")
+        """One fused multi-chain iteration (state leaves batched over C)."""
         C = state.mu.shape[0]
         return self._get_mc_run_steps(1, C)(state, self.data)
 
@@ -1088,8 +682,6 @@ class ShardedSpikeSlabSampler:
         arrays gain a chain axis after the emission axis."""
         from ..models.driver import run_chain
 
-        if self.backend != "pallas":
-            raise ValueError("run_chains requires backend='pallas'")
         state = self.init_chains(key, n_chains)
         C = n_chains
 
@@ -1136,7 +728,7 @@ class ShardedSpikeSlabSampler:
 
                     return lax.scan(one, state, None, length=n_emits)
 
-                fn = jax.jit(shard_map(body, self.mesh,
+                fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                        in_specs=(specs, self.data_specs),
                                        out_specs=(specs, row_specs),
                                        check_vma=False),
@@ -1173,10 +765,10 @@ class ShardedSpikeSlabSampler:
                 return lax.fori_loop(
                     0, n, lambda i, s: self._step_local(s, data), state)
 
-            fn = jax.jit(shard_map(body, self.mesh,
+            fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                    in_specs=(self.state_specs, self.data_specs),
                                    out_specs=self.state_specs,
-                                   check_vma=self.backend != "pallas"),
+                                   check_vma=False),
                          donate_argnums=(0,))
             self._run_steps_cache[n] = fn
         return fn
@@ -1204,10 +796,10 @@ class ShardedSpikeSlabSampler:
 
                 return lax.scan(one, state, None, length=n_emits)
 
-            fn = jax.jit(shard_map(body, self.mesh,
+            fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                    in_specs=(self.state_specs, self.data_specs),
                                    out_specs=(self.state_specs, row_specs),
-                                   check_vma=self.backend != "pallas"),
+                                   check_vma=False),
                          donate_argnums=(0,))
             self._emit_cache[kk] = fn
         return fn
@@ -1255,21 +847,18 @@ class ShardedHorseshoeSampler:
     """Regularized-horseshoe sampler sharded over a ("m", "n") device mesh.
 
     Same layout as ShardedSpikeSlabSampler: markers (and the per-marker
-    lambda/v scales) column-sharded over "m", individuals over "n"; the dense
-    sweep is block-Jacobi across m-slices with one residual psum per round
-    ("xla" backend) or per chunk ("pallas" backend, (m, 1) meshes).
+    lambda/v scales) column-sharded over "m", individuals over "n"; each
+    slice runs the strided sweep, block-Jacobi across m-slices with one
+    residual psum per round.
     """
 
     def __init__(self, X, Y, config, mesh: Mesh, *, dtype=jnp.float32,
-                 backend: str = "xla", chunk_blocks: Optional[int] = None,
                  x_dtype: str = "dense", x_stats=None, transposed=False,
                  n_individuals: Optional[int] = None,
                  has_missing: Optional[bool] = None,
                  x_process_shard: bool = False,
-                 n_markers: Optional[int] = None,
-                 split_sweep: Optional[bool] = None):
+                 n_markers: Optional[int] = None):
         from ..models.state import HorseshoeState
-        from ..ops.block_sweep import horseshoe_inner_solve  # noqa: F401
 
         if tuple(mesh.axis_names) != (AXIS_M, AXIS_N):
             raise ValueError("mesh must have axis names ('m', 'n')")
@@ -1279,25 +868,15 @@ class ShardedHorseshoeSampler:
         self.mesh = mesh
         self.Dm = mesh.shape[AXIS_M]
         self.Dn = mesh.shape[AXIS_N]
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}")
-        if x_dtype in ("int8", "2bit") and backend != "pallas":
-            raise ValueError(f"x_dtype={x_dtype!r} requires backend='pallas'")
-        # Dn > 1 runs the split sweep (see ShardedSpikeSlabSampler)
-        self._split = (backend == "pallas"
-                       and (self.Dn > 1 if split_sweep is None
-                            else bool(split_sweep)))
-        if backend == "pallas" and self.Dn != 1 and x_dtype != "dense":
-            raise ValueError("backend='pallas' with Dn > 1 supports dense "
-                             "f32 X only (quantized codes: use an (m, 1) "
-                             "mesh)")
-        self.backend = backend
-        self.chunk_blocks = chunk_blocks
-        self._pallas_interpret = jax.devices()[0].platform != "tpu"
+        if self.Dn != 1 and x_dtype != "dense":
+            raise ValueError("Dn > 1 supports dense X only (quantized code "
+                             "rows cannot row-shard: use an (m, 1) mesh)")
+        self._xpass_impl = xpass_impl(mesh.devices.flat[0].platform)
         self.config = config
         self.dtype = jnp.dtype(dtype)
         self.x_packed = x_dtype == "2bit"
         self.x_quantized = x_dtype in ("int8", "2bit")
+        self._x_kind = x_dtype
 
         x_on_device = isinstance(X, jax.Array)
         if not x_on_device:
@@ -1319,17 +898,14 @@ class ShardedHorseshoeSampler:
             else:
                 N = X.shape[1]
         elif prepacked:
-            M = X.shape[0]
+            M = X.shape[0] if n_markers is None else int(n_markers)
             N = (X.shape[1] * 16 if n_individuals is None
                  else int(n_individuals))
         elif transposed:
             M, N = X.shape
         else:
             N, M = X.shape
-        B = max(8, min(config.block_size, 1 << max(1, (M - 1).bit_length())))
-        Mpad = -(-M // (B * self.Dm)) * (B * self.Dm)
-        if Mpad // (B * self.Dm) >= 64:  # 8-aligned block count at scale
-            Mpad = -(-M // (8 * B * self.Dm)) * (8 * B * self.Dm)
+        self.jacobi, B, Mpad = _slice_plan(M, self.Dm, config.block_size)
         if self.x_packed:
             Npad = -(-N // 2048) * 2048
         else:
@@ -1344,13 +920,13 @@ class ShardedHorseshoeSampler:
         empty_i = put_global(mesh, P(), np.zeros((0,), np.int32))
         n_perm_np = None
         if self.x_packed:
-            (XT, x_mean, x_scale, xsq, gram, x_colsum, row_valid, n_perm,
+            (XT, x_mean, x_scale, xsq, gram, row_valid, n_perm,
              n_perm_np, self._has_missing) = _packed_shard_setup(
                 mesh, X, x_on_device, prepacked, transposed, x_stats,
                 has_missing, M, N, Mpad, Npad, B,
                 x_process_shard=self.x_process_shard)
         elif self.x_quantized:   # int8 codes, full rows on an (m, 1) mesh
-            (XT, x_mean, x_scale, xsq, gram, x_colsum,
+            (XT, x_mean, x_scale, xsq, gram,
              self._has_missing) = _int8_shard_setup(
                 mesh, X, transposed, x_stats, M, Mpad, B)
             row_valid = put_global(mesh, P(AXIS_N), np.arange(Npad) < N)
@@ -1377,7 +953,7 @@ class ShardedHorseshoeSampler:
                 XT = put_global(mesh, P(AXIS_M, AXIS_N), XTh)
                 xsq = put_global(mesh, P(AXIS_M), xsq_h)
             gram = self._gram(XT)
-            x_mean = x_scale = x_colsum = empty_f
+            x_mean = x_scale = empty_f
             row_valid = put_global(mesh, P(AXIS_N), np.arange(Npad) < N)
             n_perm = empty_i
         self._x_fold = self.x_quantized and not self._has_missing
@@ -1391,7 +967,7 @@ class ShardedHorseshoeSampler:
             "gram": gram,
             "valid": put_global(mesh, P(AXIS_M), np.arange(Mpad) < M),
             "row_valid": row_valid,
-            "x_mean": x_mean, "x_scale": x_scale, "x_colsum": x_colsum,
+            "x_mean": x_mean, "x_scale": x_scale,
             "n_perm": n_perm,
         }
         self.Y = put_global(mesh, P(AXIS_N), Yh)
@@ -1405,7 +981,7 @@ class ShardedHorseshoeSampler:
             "xsq": P(AXIS_M),
             "gram": P(AXIS_M, None, None), "valid": P(AXIS_M),
             "row_valid": P(AXIS_N),
-            "x_mean": mspec, "x_scale": mspec, "x_colsum": mspec,
+            "x_mean": mspec, "x_scale": mspec,
             "n_perm": P(AXIS_N) if self.x_packed else P(),
         }
         self._run_steps_cache = {}
@@ -1419,14 +995,14 @@ class ShardedHorseshoeSampler:
             g_part = lax.map(lambda xb: xb @ xb.T, blocks)
             return lax.psum(g_part, AXIS_N)
 
-        return jax.jit(shard_map(gram_shard, self.mesh,
+        return jax.jit(jax.shard_map(gram_shard, mesh=self.mesh,
                                  in_specs=P(AXIS_M, AXIS_N),
                                  out_specs=P(AXIS_M, None, None)))(XT)
 
     def _xsq_shard(self, XT):
-        f = jax.jit(shard_map(
+        f = jax.jit(jax.shard_map(
             lambda xt_loc: lax.psum(jnp.sum(xt_loc * xt_loc, axis=1), AXIS_N),
-            self.mesh, in_specs=P(AXIS_M, AXIS_N), out_specs=P(AXIS_M)))
+            mesh=self.mesh, in_specs=P(AXIS_M, AXIS_N), out_specs=P(AXIS_M)))
         return f(XT)
 
     def init(self, key):
@@ -1459,10 +1035,9 @@ class ShardedHorseshoeSampler:
 
     def _step_local(self, state, data):
         from ..models.state import HorseshoeState
-        from ..ops.block_sweep import horseshoe_inner_solve
 
         cfg = self.config
-        N, M, Mpad = self.N, self.M, self.Mpad
+        N, M = self.N, self.M
         B, nb_loc = self.B, self.nb_loc
         dt = self.dtype
         im = lax.axis_index(AXIS_M)
@@ -1484,61 +1059,19 @@ class ShardedHorseshoeSampler:
         gv = dist.gamma_shape_rng(key_m, 0.5 + 0.5 * cfg.vL, Mloc, dtype=dt)
         v = (cfg.vL / state.lam + 1.0) / gv
 
-        # ---- dense sweep, block-Jacobi across m-slices
-        key_s = jax.random.fold_in(ksweep, im)
-        kb, ki, kz = jax.random.split(key_s, 3)
-        border = jax.random.permutation(kb, nb_loc)
-        inner = jax.vmap(lambda k: jax.random.permutation(k, B))(
-            jax.random.split(ki, nb_loc))
-        z_arr = jax.random.normal(kz, (nb_loc, B), dt)
-
-        if self.backend == "pallas" and self._split:
-            eps, beta = self._pallas_split_sweep(state, data, eps, border,
-                                                 inner, z_arr)
-        elif self.backend == "pallas":
-            from ..ops.pallas_sweep import horseshoe_sweep_pallas
-
-            C = min(self.chunk_blocks or 128, nb_loc)
-            beta = state.beta
-            z_flat = z_arr.reshape(-1)
-            for c0 in range(0, nb_loc, C):
-                cb = min(C, nb_loc - c0)
-                eps_new, beta = horseshoe_sweep_pallas(
-                    data["XT"], data["gram"], data["xsq"], eps, beta,
-                    lax.dynamic_slice_in_dim(border, c0, cb),
-                    lax.dynamic_slice_in_dim(inner, c0, cb),
-                    lax.dynamic_slice_in_dim(z_flat, c0 * B, cb * B),
-                    state.lam, state.tau, state.c2, state.sigmaE,
-                    data["valid"], interpret=self._pallas_interpret,
-                    inner_positional=True,
-                    x_mean=data["x_mean"] if self.x_quantized else None,
-                    x_scale=data["x_scale"] if self.x_quantized else None,
-                    fold_affine=self._x_fold,
-                    x_xsum=data["x_colsum"] if self.x_quantized else None,
-                    row_valid=data["row_valid"] if self.x_packed else None)
-                eps = eps + lax.psum(eps_new - eps, AXIS_M)
-        else:
-            def round_body(carry, xs):
-                eps, beta = carry
-                b, inr, z_b = xs
-                start = b * B
-                Xb = lax.dynamic_slice_in_dim(data["XT"], start, B, axis=0)
-                Gb = data["gram"][b]
-                beta_b = lax.dynamic_slice_in_dim(beta, start, B)
-                xsq_b = lax.dynamic_slice_in_dim(data["xsq"], start, B)
-                lam_b = lax.dynamic_slice_in_dim(state.lam, start, B)
-                valid_b = lax.dynamic_slice_in_dim(data["valid"], start, B)
-                r = lax.psum(Xb @ eps, AXIS_N)
-                r, beta_b, delta = horseshoe_inner_solve(
-                    r, Gb, beta_b, xsq_b, lam_b, valid_b, inr, z_b,
-                    state.tau, state.c2, state.sigmaE)
-                eps = eps - lax.psum(delta @ Xb, AXIS_M)
-                beta = lax.dynamic_update_slice_in_dim(beta, beta_b, start,
-                                                       axis=0)
-                return (eps, beta), None
-
-            (eps, beta), _ = lax.scan(round_body, (eps, state.beta),
-                                      (border, inner, z_arr))
+        # ---- strided sweep, block-Jacobi across m-slices
+        korder, kz = jax.random.split(jax.random.fold_in(ksweep, im), 2)
+        rho, inner = bs.strided_orders(korder, nb_loc, B, self.jacobi)
+        z_arr = jax.random.normal(kz, (Mloc,), dt)
+        eps, beta = strided.horseshoe_strided_sweep(
+            (data["XT"], data["x_mean"], data["x_scale"], data["row_valid"]),
+            data["gram"], data["xsq"], eps[None], state.beta[None], rho,
+            inner, z_arr[None], state.lam[None], state.tau[None],
+            state.c2[None], state.sigmaE[None], data["valid"], J=self.jacobi,
+            kind=self._x_kind, fold=self._x_fold, impl=self._xpass_impl,
+            reduce_r=lambda r: lax.psum(r, AXIS_N),
+            reduce_eps=lambda u: lax.psum(u, AXIS_M))
+        eps, beta = eps[0], beta[0]
 
         # ---- local/global scale updates
         key_l = jax.random.fold_in(klam, im)
@@ -1562,48 +1095,6 @@ class ShardedHorseshoeSampler:
             sigmaE=sigmaE, lam=lam, v=v, tau=tau.astype(dt),
             eta=eta.astype(dt), c2=c2.astype(dt))
 
-    def _pallas_split_sweep(self, state, data, eps, border, inner, z_arr):
-        """Row-shardable (Dn > 1) horseshoe sweep; see
-        ShardedSpikeSlabSampler._pallas_split_sweep for the design."""
-        from ..ops.pallas_jacobi import (build_pkg_hs_jacobi,
-                                         horseshoe_round_solve_pallas)
-
-        nb_loc, B = self.nb_loc, self.B
-        dt = self.dtype
-        J = min(self.chunk_blocks or 8, nb_loc)
-        while nb_loc % J:
-            J -= 1
-        nr = nb_loc // J
-        inner_by_block = jnp.zeros_like(inner).at[border].set(inner)
-        pkg, inner_sel = build_pkg_hs_jacobi(
-            data["xsq"], data["valid"], z_arr.reshape(-1),
-            state.lam, state.tau, state.c2, state.sigmaE,
-            border, inner_by_block, B=B, J=J)
-        bsel = border.reshape(nr, J).astype(jnp.int32)
-        lane = jnp.arange(B, dtype=jnp.int32)
-        Nloc = data["XT"].shape[1]
-        XTb = data["XT"].reshape(nb_loc, B, Nloc)
-
-        def round_body(carry, xs):
-            eps, beta = carry
-            bs_j, pkg_r, inner_r = xs
-            idx = (bs_j[:, None] * B + lane[None, :]).reshape(-1)
-            Xc = jnp.take(XTb, bs_j, axis=0).reshape(J * B, Nloc)
-            r = lax.psum(Xc @ eps, AXIS_N).reshape(J, B)
-            gram_r = jnp.take(data["gram"], bs_j, axis=0)
-            beta_r = jnp.take(beta, idx).reshape(J, B)
-            dlane, beta_new = horseshoe_round_solve_pallas(
-                r, gram_r, beta_r, inner_r, pkg_r,
-                interpret=self._pallas_interpret)
-            upd = (dlane.reshape(1, J * B).astype(dt) @ Xc)[0]
-            eps = eps - lax.psum(upd, AXIS_M)
-            beta = beta.at[idx].set(beta_new.reshape(-1).astype(dt))
-            return (eps, beta), None
-
-        (eps, beta), _ = lax.scan(round_body, (eps, state.beta),
-                                  (bsel, pkg, inner_sel))
-        return eps, beta
-
     # ------------------------------------------------------------- drivers
 
     def _emit_one(self, state):
@@ -1624,10 +1115,10 @@ class ShardedHorseshoeSampler:
                 return lax.fori_loop(
                     0, n, lambda i, s: self._step_local(s, data), state)
 
-            fn = jax.jit(shard_map(body, self.mesh,
+            fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                    in_specs=(self.state_specs, self.data_specs),
                                    out_specs=self.state_specs,
-                                   check_vma=self.backend != "pallas"),
+                                   check_vma=False),
                          donate_argnums=(0,))
             self._run_steps_cache[n] = fn
         return fn
@@ -1654,10 +1145,10 @@ class ShardedHorseshoeSampler:
 
                 return lax.scan(one, state, None, length=n_emits)
 
-            fn = jax.jit(shard_map(body, self.mesh,
+            fn = jax.jit(jax.shard_map(body, mesh=self.mesh,
                                    in_specs=(self.state_specs, self.data_specs),
                                    out_specs=(self.state_specs, row_specs),
-                                   check_vma=self.backend != "pallas"),
+                                   check_vma=False),
                          donate_argnums=(0,))
             self._emit_cache[kk] = fn
         return fn
@@ -1686,8 +1177,8 @@ class ShardedHorseshoeSampler:
         """Exact residual recompute (see ChainConfig.eps_refresh_every)."""
         fn = self._run_steps_cache.get("refresh")
         if fn is None:
-            fn = jax.jit(shard_map(
-                self._refresh_local, self.mesh,
+            fn = jax.jit(jax.shard_map(
+                self._refresh_local, mesh=self.mesh,
                 in_specs=(self.state_specs, self.data_specs, P(AXIS_N)),
                 out_specs=self.state_specs, check_vma=False))
             self._run_steps_cache["refresh"] = fn

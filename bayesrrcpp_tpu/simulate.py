@@ -65,7 +65,7 @@ def random_packed_words(key, M, n_words):
     Each packed field gets hi-bit from one random stream and lo-bit from a
     second, with lo forced to 0 whenever hi is 1 -- codes land in {0, 1, 2}
     (P = 1/4, 1/4, 1/2), never the missing code 3.  Device-side and cheap;
-    used by benchmarks so the fold-affine kernel path is exercised.
+    used by benchmarks so the missing-free X pass is exercised.
     Stats for decode: mean 1.25, sd sqrt(11/16).
     """
     import jax

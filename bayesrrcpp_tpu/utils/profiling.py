@@ -3,7 +3,7 @@
 The reference's only instrumentation is a whole-chain wall-clock print
 (reference: src/BayesRv2.cpp:167, 276-278).  This module provides the
 north-star counter (SNP-updates/s, BASELINE.json) and an optional
-``jax.profiler`` trace context for per-op TPU timelines.
+``jax.profiler`` trace context for per-op device timelines.
 """
 from __future__ import annotations
 

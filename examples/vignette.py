@@ -8,7 +8,7 @@ effect recovery + proportion of variance explained (PVE) by hand:
 2. two-group BayesRR (genotype + methylation) (vignettes/BayesRR.Rmd:150-167)
 3. groups + Gaussian fixed effects            (vignettes/BayesRR.Rmd:199-215)
 
-This script reproduces all three with the TPU-native engine, then adds the
+This script reproduces all three with this engine, then adds the
 fourth capability the reference documents separately: warm-restarting a
 grouped chain from its final state (reference: src/BRv2Grstart.cpp:77).
 
@@ -28,12 +28,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
                     help="shrink sizes/iterations (CI smoke)")
-    ap.add_argument("--tpu", action="store_true",
-                    help="keep the ambient (TPU) backend instead of CPU")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on JAX's default backend (a GPU) instead of "
+                         "the CPU")
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp  # noqa: F401
 

@@ -1,6 +1,6 @@
 // Native PLINK .bed decoder for bayesrrcpp_tpu.
 //
-// TPU-native equivalent of the reference's data-ingestion path (the
+// Native equivalent of the reference's data-ingestion path (the
 // reference takes a dense in-RAM R matrix, src/BayesRv2.cpp:60, so it tops
 // out at host RAM; real genotype data ships as PLINK 2-bit .bed).  This
 // decoder streams SNP-major .bed bytes straight into the sampler's packed

@@ -1,6 +1,6 @@
 // Native sample-row CSV formatter for bayesrrcpp_tpu.
 //
-// TPU-native equivalent of the reference's output runtime (the vendored
+// Native equivalent of the reference's output runtime (the vendored
 // moodycamel queue + Eigen CommaInitFmt consumer thread, reference:
 // src/concurrentqueue.h, src/BayesRv2.cpp:72,281-290).  The host-side
 // bottleneck at scale is double->ascii conversion of very wide sample rows

@@ -47,7 +47,7 @@ def main():
         kw = dict(x_process_shard=True, n_markers=M, transposed=True)
         X = np.ascontiguousarray(X.T)[lo:lo + m_real]
     s = ShardedSpikeSlabSampler(X, Y, cva, GroupsConfig(block_size=16), mesh,
-                                g_assign=g_assign, backend="xla",
+                                g_assign=g_assign,
                                 dtype=jnp.float32, **kw)
     state = s.init(jax.random.PRNGKey(7))
     for _ in range(3):

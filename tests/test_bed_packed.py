@@ -258,7 +258,7 @@ def test_mpad_auto_prepacked_equals_unpadded(tmp_path):
     n_markers=) must give the SAME chain as the unpadded load whose pad
     happens on device -- and it removes the on-device pad that would OOM
     a biobank-sized array (round-3 VERDICT #4)."""
-    from bayesrrcpp_tpu.ops.pallas_jacobi import planned_mpad
+    from bayesrrcpp_tpu.ops.strided import planned_mpad
 
     rng = np.random.default_rng(11)
     N, M = 300, 100          # M=100 divides nothing the planner likes

@@ -16,7 +16,7 @@ from bayesrrcpp_tpu.parallel.chains import ChainParallelRunner, chain_mesh
 def test_chain_parallel_matches_per_shard_fused():
     sim = simulate.simulate_bayesr(seed=91, N=160, M=64, n_causal=8, h2=0.5)
     s = SpikeSlabSampler(sim.X, sim.Y, np.array([0.001, 0.01, 0.1]),
-                         BayesRConfig(block_size=32), backend="pallas",
+                         BayesRConfig(block_size=32),
                          dtype=jnp.float32)
     mesh = chain_mesh(2)
     runner = ChainParallelRunner(s, mesh)
@@ -43,7 +43,7 @@ def test_chain_parallel_matches_per_shard_fused():
 def test_chain_parallel_full_run():
     sim = simulate.simulate_bayesr(seed=92, N=200, M=64, n_causal=8, h2=0.6)
     s = SpikeSlabSampler(sim.X, sim.Y, np.array([0.001, 0.01, 0.1]),
-                         BayesRConfig(block_size=32), backend="pallas",
+                         BayesRConfig(block_size=32),
                          dtype=jnp.float32)
     runner = ChainParallelRunner(s, chain_mesh(4))
     _, out = runner.run(jax.random.PRNGKey(6), 8, ChainConfig(40, 20, 4))

@@ -1,16 +1,13 @@
-"""Transposed strided-rounds Jacobi kernels (ops/pallas_jacobi_t.py).
+"""Strided-rounds sweep (ops/strided.py) against its plain references.
 
-Exactness strategy: the t-kernel sweeps the SAME marker partition as a
-row-layout sweep whose block_order is ``strided_border(rho, J)``, so the
-XLA oracle (ops/block_sweep.bayesr_jacobi_sweep) pins it exactly -- the
-only convention difference is that the t-kernel consumes the position-
-indexed p/z streams in CANONICAL slab order (operands are built rho-free;
-rho applies in the kernel's scalar-prefetch index maps), so the oracle
-gets the canonically-assigned stream re-ordered to visit order.
+Exactness strategy: the strided sweep sweeps the SAME marker partition as
+the plain block-Jacobi oracle (ops/block_sweep.bayesr_jacobi_sweep) run with
+``block_order = strided_border(rho, J)``, and both read the position-indexed
+p/z streams in visit order, so the oracle pins it exactly: labels and v
+bit-equal, floats to reassociation tolerance.
 
-The multi-chain kernel must equal C independent single-chain t-runs with
-the same per-chain streams (labels and v bit-exact) -- the round-3
-VERDICT's mc-vs-oracle equality ask.
+The chain axis must equal C independent single-chain sweeps with the same
+per-chain streams (labels and v exact).
 """
 import jax
 import jax.numpy as jnp
@@ -20,17 +17,34 @@ import pytest
 from bayesrrcpp_tpu import BayesRConfig, ChainConfig, HorseshoeConfig, \
     HorseshoeSampler, SpikeSlabSampler, simulate
 from bayesrrcpp_tpu.ops import block_sweep as bs
-from bayesrrcpp_tpu.ops.pallas_jacobi import auto_jacobi_plan
-from bayesrrcpp_tpu.ops.pallas_jacobi_t import (bayesr_jacobi_t_pallas,
-                                                bayesr_jacobi_t_pallas_mc,
-                                                horseshoe_jacobi_t_pallas)
+from bayesrrcpp_tpu.ops.strided import (bayesr_strided_sweep,
+                                        horseshoe_strided_sweep, jacobi_plan,
+                                        planned_mpad)
 from test_jacobi import _hs_sweep_args, _nomissing_dosage, _sweep_args, CVA
 
+_E = jnp.zeros((0,))
 
-def _visit(arr, rho, J, B):
-    """Canonical-slab-assigned position stream as seen in visit order."""
-    nr = rho.shape[0]
-    return jnp.take(arr.reshape(nr, J * B), rho, axis=0).reshape(-1)
+
+def _dense(XT):
+    return (XT, _E, _E, _E)
+
+
+def _ss(XT, gram, xsq, eps, beta, labels, rho, inner, p, z, pi, cva,
+        sigmaE, sigmaGG, gas, valid, J):
+    """Single-chain strided sweep on dense X."""
+    out = bayesr_strided_sweep(
+        _dense(XT), gram, xsq, eps[None], beta[None], labels[None], rho,
+        inner, p[None], z[None], pi[None], cva, sigmaE[None],
+        sigmaGG[None], gas, valid, J=J)
+    return jax.tree.map(lambda a: a[0], out)
+
+
+def _hs(XT, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE,
+        valid, J):
+    e, b = horseshoe_strided_sweep(
+        _dense(XT), gram, xsq, eps[None], beta[None], rho, inner, z[None],
+        lam[None], tau[None], c2[None], sigmaE[None], valid, J=J)
+    return e[0], b[0]
 
 
 @pytest.mark.parametrize("J,G,B,M", [(1, 1, 16, 128), (4, 1, 16, 128),
@@ -41,11 +55,8 @@ def test_t_kernel_equals_oracle(J, G, B, M):
     rho, inner = bs.strided_orders(jax.random.PRNGKey(7 + J), nb, B, J)
     args_o = list(args)
     args_o[6], args_o[7] = bs.strided_border(rho, J), inner
-    args_o[8] = _visit(args[8], rho, J, B)
-    args_o[9] = _visit(args[9], rho, J, B)
     ref = bs.bayesr_jacobi_sweep(*args_o, J=J)
-    out = bayesr_jacobi_t_pallas(*(args[:6] + [rho, inner] + args[8:]),
-                                 J=J, interpret=True)
+    out = _ss(*(args[:6] + [rho, inner] + args[8:]), J=J)
     np.testing.assert_array_equal(np.asarray(ref.labels),
                                   np.asarray(out.labels))
     np.testing.assert_allclose(np.asarray(ref.beta), np.asarray(out.beta),
@@ -64,10 +75,8 @@ def test_hs_t_kernel_equals_oracle(J):
     rho, inner = bs.strided_orders(jax.random.PRNGKey(3 + J), 8, 16, J)
     args_o = list(args)
     args_o[5], args_o[6] = bs.strided_border(rho, J), inner
-    args_o[7] = _visit(args[7], rho, J, 16)
     eps_r, beta_r = bs.horseshoe_jacobi_sweep(*args_o, J=J)
-    eps_o, beta_o = horseshoe_jacobi_t_pallas(
-        *(args[:5] + [rho, inner] + args[7:]), J=J, interpret=True)
+    eps_o, beta_o = _hs(*(args[:5] + [rho, inner] + args[7:]), J=J)
     np.testing.assert_allclose(np.asarray(beta_r), np.asarray(beta_o),
                                rtol=2e-4, atol=2e-6)
     np.testing.assert_allclose(np.asarray(eps_r), np.asarray(eps_o),
@@ -97,19 +106,18 @@ def _mc_args(seed, N, M, B, G, C):
 
 @pytest.mark.parametrize("J,G,C", [(4, 1, 2), (2, 3, 4)])
 def test_mc_t_equals_single_chain_runs(J, G, C):
-    """The fused multi-chain kernel == C independent single-chain runs
-    with the same streams (labels/v exact)."""
+    """The chain axis == C independent single-chain sweeps with the same
+    streams (labels/v exact)."""
     (XT, gram, xsq, eps, beta, labels, p, z, pi, cva, sigmaE,
      sigmaGG, gas, valid) = _mc_args(11 + J + C, 96, 128, 16, G, C)
     rho, inner = bs.strided_orders(jax.random.PRNGKey(9 + J), 8, 16, J)
-    out = bayesr_jacobi_t_pallas_mc(
-        XT, gram, xsq, eps, beta, labels, rho, inner, p, z,
-        pi, cva, sigmaE, sigmaGG, gas, valid, J=J, interpret=True)
+    out = bayesr_strided_sweep(
+        _dense(XT), gram, xsq, eps, beta, labels, rho, inner, p, z,
+        pi, cva, sigmaE, sigmaGG, gas, valid, J=J)
     for c in range(C):
-        ref = bayesr_jacobi_t_pallas(
-            XT, gram, xsq, eps[c], beta[c], labels[c], rho, inner,
-            p[c], z[c], pi[c], cva, sigmaE[c], sigmaGG[c], gas, valid,
-            J=J, interpret=True)
+        ref = _ss(XT, gram, xsq, eps[c], beta[c], labels[c], rho, inner,
+                  p[c], z[c], pi[c], cva, sigmaE[c], sigmaGG[c], gas, valid,
+                  J=J)
         np.testing.assert_array_equal(np.asarray(ref.labels),
                                       np.asarray(out.labels[c]))
         np.testing.assert_allclose(np.asarray(ref.beta),
@@ -124,20 +132,18 @@ def test_mc_t_equals_single_chain_runs(J, G, C):
 
 @pytest.mark.slow
 def test_mc_t_group_split_equals_single_runs():
-    """C=8 > the VMEM chain-group size: the group-split path must still
-    equal 8 independent runs."""
+    """C=8 chains must equal 8 independent runs."""
     C, J, G = 8, 8, 2
     (XT, gram, xsq, eps, beta, labels, p, z, pi, cva, sigmaE,
      sigmaGG, gas, valid) = _mc_args(77, 96, 256, 8, G, C)
     rho, inner = bs.strided_orders(jax.random.PRNGKey(17), 32, 8, J)
-    out = bayesr_jacobi_t_pallas_mc(
-        XT, gram, xsq, eps, beta, labels, rho, inner, p, z,
-        pi, cva, sigmaE, sigmaGG, gas, valid, J=J, interpret=True)
+    out = bayesr_strided_sweep(
+        _dense(XT), gram, xsq, eps, beta, labels, rho, inner, p, z,
+        pi, cva, sigmaE, sigmaGG, gas, valid, J=J)
     for c in range(C):
-        ref = bayesr_jacobi_t_pallas(
-            XT, gram, xsq, eps[c], beta[c], labels[c], rho, inner,
-            p[c], z[c], pi[c], cva, sigmaE[c], sigmaGG[c], gas, valid,
-            J=J, interpret=True)
+        ref = _ss(XT, gram, xsq, eps[c], beta[c], labels[c], rho, inner,
+                  p[c], z[c], pi[c], cva, sigmaE[c], sigmaGG[c], gas, valid,
+                  J=J)
         np.testing.assert_array_equal(np.asarray(ref.labels),
                                       np.asarray(out.labels[c]))
         np.testing.assert_allclose(np.asarray(ref.beta),
@@ -148,15 +154,13 @@ def test_mc_t_group_split_equals_single_runs():
 @pytest.mark.slow
 @pytest.mark.parametrize("x_dtype", ["int8", "2bit"])
 def test_t_fold_quantized_equals_dense(x_dtype):
-    """Fold-affine quantized t-sweep == dense t-sweep (same chain keys)."""
+    """Folded quantized sweep == dense sweep (same chain keys)."""
     dosage, dense, y = _nomissing_dosage(41, 150, 96)
     cfg = BayesRConfig(block_size=16)
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype=x_dtype,
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     assert s_q._x_fold
     key = jax.random.PRNGKey(42)
     st_d, st_q = s_d.init(key), s_q.init(key)
@@ -172,15 +176,13 @@ def test_t_fold_quantized_equals_dense(x_dtype):
 
 @pytest.mark.slow
 def test_mc_t_fold_quantized_equals_dense():
-    """Fused multi-chain fold-affine 2-bit == dense, through step_chains."""
+    """Fused multi-chain folded 2-bit == dense, through step_chains."""
     dosage, dense, y = _nomissing_dosage(41, 150, 96)
     cfg = BayesRConfig(block_size=16)
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     C = 3
     ks = jax.random.split(jax.random.PRNGKey(42), C)
     st_d = jax.vmap(s_d.init)(ks)
@@ -197,12 +199,10 @@ def test_mc_t_fold_quantized_equals_dense():
 def test_hs_t_fold_quantized_equals_dense():
     dosage, dense, y = _nomissing_dosage(43, 150, 96)
     cfg = HorseshoeConfig(block_size=16)
-    h_d = HorseshoeSampler(dense, y, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    h_d = HorseshoeSampler(dense, y, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     h_q = HorseshoeSampler(dosage, y, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     assert h_q._x_fold
     key = jax.random.PRNGKey(44)
     st_d, st_q = h_d.init(key), h_q.init(key)
@@ -223,8 +223,7 @@ def test_t_sampler_recovery():
     sim = simulate.simulate_bayesr(seed=77, N=400, M=160, n_causal=16,
                                    h2=0.5)
     s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16),
-                         backend="pallas", dtype=jnp.float32,
-                         jacobi_blocks=5, jacobi_layout="t")
+                         dtype=jnp.float32, jacobi_blocks=5)
     _, out = s.run(jax.random.PRNGKey(7), ChainConfig(150, 75, 5))
     bh = out["beta"].mean(axis=0)
     corr = np.corrcoef(sim.beta_true, bh)[0, 1]
@@ -233,19 +232,18 @@ def test_t_sampler_recovery():
 
 
 def test_auto_jacobi_plan_selection():
-    """Pin the auto plan at the shapes that matter (round-3 VERDICT ask:
-    selection changes must be visible in review, not only in bench
-    artifacts)."""
-    # biobank headline M: transposed kernel, J=128 lanes, 4096 window
-    assert auto_jacobi_plan(503_808, 512) == (128, 32, "t")
+    """Pin the auto plan at the shapes that matter, so a selection change
+    is visible in review."""
+    # biobank headline M: J=128 blocks of 32, a 4096-marker window
+    assert jacobi_plan(503_808, 512) == (128, 32)
     # dense bench shape
-    assert auto_jacobi_plan(49_152, 512) == (128, 32, "t")
-    # vignette scale: padding unavoidable, largest window under M/8;
-    # B floors at 32 (smaller blocks fail Mosaic layout on real TPUs)
-    assert auto_jacobi_plan(10_000, 512) == (32, 32, "t")
-    # tiny M: no transposed plan -> row-layout fallback (J=1 sequential)
-    j, b, lay = auto_jacobi_plan(96, 512)
-    assert lay == "row" and j == 1
+    assert jacobi_plan(49_152, 512) == (128, 32)
+    # one slice of the 4-card config 5 (M=1M over 4): padding unavoidable
+    assert jacobi_plan(250_000, 512) == (128, 32)
+    # vignette scale: padding unavoidable, largest window under M/8
+    assert jacobi_plan(10_000, 512) == (32, 32)
+    # tiny M: no window -> J=1 (exact sequential) at the caller's B
+    assert jacobi_plan(96, 128) == (1, 128)
 
 
 def test_strided_border_is_permutation():
@@ -260,24 +258,18 @@ def test_strided_border_is_permutation():
 def test_planned_mpad_matches_sampler():
     """Drift guard: planned_mpad (used by host loaders to pre-pad packed
     words) must equal the Mpad the auto-plan sampler actually picks."""
-    from bayesrrcpp_tpu.ops.pallas_jacobi import planned_mpad
-
     rng = np.random.default_rng(0)
     for M in (96, 100, 1024, 2048, 10_000, 49_152):
         N = 64
         X = rng.standard_normal((N, M)).astype(np.float32)
         Y = rng.standard_normal(N).astype(np.float32)
-        s = SpikeSlabSampler(X, Y, CVA, BayesRConfig(), backend="pallas",
-                             dtype=jnp.float32)
+        s = SpikeSlabSampler(X, Y, CVA, BayesRConfig(), dtype=jnp.float32)
         assert s.Mpad == planned_mpad(M), (M, s.Mpad, planned_mpad(M))
 
 
 @pytest.mark.parametrize("C", [2, 4])
 def test_hs_mc_t_equals_single_chain_runs(C):
-    """Fused multi-chain horseshoe == C independent single-chain t-runs."""
-    from bayesrrcpp_tpu.ops.pallas_jacobi_t import (
-        horseshoe_jacobi_t_pallas_mc)
-
+    """Multi-chain horseshoe sweep == C independent single-chain runs."""
     rng = np.random.default_rng(23 + C)
     N, M, B, J = 96, 128, 16, 4
     X = rng.standard_normal((N, M)).astype(np.float32)
@@ -293,25 +285,24 @@ def test_hs_mc_t_equals_single_chain_runs(C):
     sigmaE = jnp.asarray(rng.uniform(0.5, 1.0, C).astype(np.float32))
     valid = jnp.ones(M, bool)
     rho, inner = bs.strided_orders(jax.random.PRNGKey(13), M // B, B, J)
-    eps_o, beta_o = horseshoe_jacobi_t_pallas_mc(
-        XT, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE,
-        valid, J=J, interpret=True)
+    eps_o, beta_o = horseshoe_strided_sweep(
+        _dense(XT), gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
+        sigmaE, valid, J=J)
     for c in range(C):
-        e_r, b_r = horseshoe_jacobi_t_pallas(
-            XT, gram, xsq, eps[c], beta[c], rho, inner, z[c], lam[c],
-            tau[c], c2[c], sigmaE[c], valid, J=J, interpret=True)
+        e_r, b_r = _hs(XT, gram, xsq, eps[c], beta[c], rho, inner, z[c],
+                       lam[c], tau[c], c2[c], sigmaE[c], valid, J=J)
         np.testing.assert_allclose(np.asarray(b_r), np.asarray(beta_o[c]),
                                    rtol=3e-4, atol=3e-6)
         np.testing.assert_allclose(np.asarray(e_r), np.asarray(eps_o[c]),
                                    rtol=3e-4, atol=3e-5)
 
 
-# ------------------------------------------------- missing-data fast path
+# ------------------------------------------------------ missing calls
 
 def _missing_dosage(seed, N, M, frac=0.03):
     """Dosage matrix with sparse NaN missing calls plus its exact dense
     equivalent (standardized, missing -> 0 = mean imputation -- the same
-    decode the serial in-kernel-missing path applies)."""
+    decode the X pass applies)."""
     rng = np.random.default_rng(seed)
     freqs = rng.uniform(0.2, 0.8, M)
     dosage = rng.binomial(2, freqs, size=(N, M)).astype(float)
@@ -331,20 +322,14 @@ def _missing_dosage(seed, N, M, frac=0.03):
 @pytest.mark.parametrize("jacobi", [1, 3])
 def test_t_missing_packed_equals_dense(jacobi):
     """2-bit packed X WITH missing calls must equal the dense sampler on
-    the exact mean-imputed standardized matrix -- at J=1 through the
-    serial in-kernel-missing kernel (the pre-existing path), at J>1
-    through the NEW transposed-Jacobi sparse-correction fast path; both
-    against the same dense anchor, so the two packed paths agree with
-    each other (round-4 VERDICT ask #1)."""
+    the exact mean-imputed standardized matrix, at J=1 and J>1."""
     dosage, dense, y = _missing_dosage(83, 150, 96)
     cfg = BayesRConfig(block_size=16)
-    kw = ({"jacobi_blocks": 1} if jacobi == 1
-          else {"jacobi_blocks": jacobi, "jacobi_layout": "t"})
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32, **kw)
+    kw = {"jacobi_blocks": jacobi}
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32, **kw)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype="2bit",
                            dtype=jnp.float32, **kw)
-    assert s_q._x_miss and not s_q._x_fold
+    assert not s_q._x_fold
     assert s_q.jacobi == jacobi  # no silent fallback to J=1
     key = jax.random.PRNGKey(42)
     st_d, st_q = s_d.init(key), s_q.init(key)
@@ -364,15 +349,13 @@ def test_t_missing_packed_equals_dense(jacobi):
 @pytest.mark.slow
 def test_mc_t_missing_packed_equals_dense():
     """Fused multi-chain sweep with packed-missing X == dense, through
-    step_chains (supports_fused_chains must include the missing path)."""
+    step_chains (supports_fused_chains includes missing calls)."""
     dosage, dense, y = _missing_dosage(85, 150, 96)
     cfg = BayesRConfig(block_size=16)
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     assert s_q.supports_fused_chains
     C = 3
     ks = jax.random.split(jax.random.PRNGKey(47), C)
@@ -390,13 +373,11 @@ def test_mc_t_missing_packed_equals_dense():
 def test_hs_t_missing_packed_equals_dense():
     dosage, dense, y = _missing_dosage(87, 150, 96)
     cfg = HorseshoeConfig(block_size=16)
-    h_d = HorseshoeSampler(dense, y, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    h_d = HorseshoeSampler(dense, y, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     h_q = HorseshoeSampler(dosage, y, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
-    assert h_q._x_miss and h_q.jacobi == 3
+                           dtype=jnp.float32, jacobi_blocks=3)
+    assert not h_q._x_fold and h_q.jacobi == 3
     key = jax.random.PRNGKey(48)
     st_d, st_q = h_d.init(key), h_q.init(key)
     for _ in range(3):
@@ -411,12 +392,10 @@ def test_hs_t_missing_packed_equals_dense():
 def test_hs_mc_t_missing_packed_equals_dense():
     dosage, dense, y = _missing_dosage(89, 150, 96)
     cfg = HorseshoeConfig(block_size=16)
-    h_d = HorseshoeSampler(dense, y, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    h_d = HorseshoeSampler(dense, y, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     h_q = HorseshoeSampler(dosage, y, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     assert h_q.supports_fused_chains
     C = 2
     ks = jax.random.split(jax.random.PRNGKey(51), C)
@@ -431,22 +410,18 @@ def test_hs_mc_t_missing_packed_equals_dense():
 @pytest.mark.slow
 @pytest.mark.parametrize("frac_missing", [0.0, 0.03])
 def test_mc8_wide_packed_equals_dense(frac_missing):
-    """C=8 fused chains through the WIDE mc kernel (one X stream + one
-    decode for all chains, ops/pallas_jacobi_t._jacobi_t_mc8_kernel) must
-    equal the dense sampler, in both fold-affine and missing modes
-    (round-4 VERDICT ask #8)."""
+    """C=8 fused chains (one X read per round for all chains) must equal
+    the dense sampler, in both folded and missing modes."""
     if frac_missing:
         dosage, dense, y = _missing_dosage(91, 150, 96, frac=frac_missing)
     else:
         dosage, dense, y = _nomissing_dosage(91, 150, 96)
     cfg = BayesRConfig(block_size=16)
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
-    C = 8  # > the 4-chain VMEM group -> the wide kernel
+                           dtype=jnp.float32, jacobi_blocks=3)
+    C = 8
     ks = jax.random.split(jax.random.PRNGKey(53), C)
     st_d = jax.vmap(s_d.init)(ks)
     st_q = jax.vmap(s_q.init)(ks)
@@ -462,11 +437,7 @@ def test_mc8_wide_packed_equals_dense(frac_missing):
 
 @pytest.mark.slow
 def test_hs_mc8_wide_equals_single_runs():
-    """C=8 fused horseshoe chains through the WIDE mc kernel == 8
-    independent single-chain t-runs."""
-    from bayesrrcpp_tpu.ops.pallas_jacobi_t import (
-        horseshoe_jacobi_t_pallas_mc)
-
+    """C=8 fused horseshoe chains == 8 independent single-chain runs."""
     rng = np.random.default_rng(61)
     N, M, B, J, C = 96, 256, 8, 8, 8
     X = rng.standard_normal((N, M)).astype(np.float32)
@@ -482,13 +453,12 @@ def test_hs_mc8_wide_equals_single_runs():
     sigmaE = jnp.asarray(rng.uniform(0.5, 1.0, C).astype(np.float32))
     valid = jnp.ones(M, bool)
     rho, inner = bs.strided_orders(jax.random.PRNGKey(29), M // B, B, J)
-    eps_o, beta_o = horseshoe_jacobi_t_pallas_mc(
-        XT, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE,
-        valid, J=J, interpret=True)      # C=8 -> wide kernel
+    eps_o, beta_o = horseshoe_strided_sweep(
+        _dense(XT), gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
+        sigmaE, valid, J=J)
     for c in range(C):
-        e_r, b_r = horseshoe_jacobi_t_pallas(
-            XT, gram, xsq, eps[c], beta[c], rho, inner, z[c], lam[c],
-            tau[c], c2[c], sigmaE[c], valid, J=J, interpret=True)
+        e_r, b_r = _hs(XT, gram, xsq, eps[c], beta[c], rho, inner, z[c],
+                       lam[c], tau[c], c2[c], sigmaE[c], valid, J=J)
         np.testing.assert_allclose(np.asarray(b_r), np.asarray(beta_o[c]),
                                    rtol=3e-4, atol=3e-6)
         np.testing.assert_allclose(np.asarray(e_r), np.asarray(eps_o[c]),
@@ -497,16 +467,14 @@ def test_hs_mc8_wide_equals_single_runs():
 
 @pytest.mark.slow
 def test_hs_mc8_wide_packed_equals_dense():
-    """C=8 fused horseshoe chains, packed fold-affine, through
-    step_chains: wide kernel == dense."""
+    """C=8 fused horseshoe chains, packed and folded, through
+    step_chains == dense."""
     dosage, dense, y = _nomissing_dosage(95, 150, 96)
     cfg = HorseshoeConfig(block_size=16)
-    h_d = HorseshoeSampler(dense, y, cfg, backend="pallas",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+    h_d = HorseshoeSampler(dense, y, cfg, dtype=jnp.float32,
+                           jacobi_blocks=3)
     h_q = HorseshoeSampler(dosage, y, cfg, x_dtype="2bit",
-                           dtype=jnp.float32, jacobi_blocks=3,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=3)
     C = 8
     ks = jax.random.split(jax.random.PRNGKey(59), C)
     st_d = jax.vmap(h_d.init)(ks)

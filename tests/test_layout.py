@@ -1,22 +1,15 @@
-"""Packed eps-layout consistency at Npad > 2048 (round-5 fix).
+"""Packed eps-layout consistency at Npad > 2048.
 
-The packed kernels store eps/Y in the ``genotypes._lane_perm`` individual
-permutation.  Through round 4 that permutation interleaved bit-planes per
-2048-lane tile while the VMEM-aware kernels sliced eps by their OWN
-(often full-row) N-tile -- so any packed sweep whose tile grew past 2048
-lanes silently paired eps rows with the WRONG individuals' genotype
-words, scrambling the X<->Y association (benchmarks were timing-valid;
-real analyses were not).  Every recovery/equality test ran at N = 2048,
-exactly where the two layouts coincide.
-
-The layout is now GLOBAL plane-major (position k*Nw + w holds individual
-16*w + k), which keeps the (bit-plane, tile) eps segment contiguous for
-EVERY tile size.  These tests pin the invariant that exposes the bug --
+Packed storage keeps eps/Y in the ``genotypes._lane_perm`` individual
+permutation (GLOBAL plane-major: position k*Nw + w holds individual
+16*w + k), and the X pass pairs eps viewed as (16, Nw) with the words'
+bit-planes.  Any other pairing silently scrambles the X<->Y association,
+and at N = 2048 (one 2048-lane tile) several wrong layouts coincide with
+the right one.  These tests pin the invariant that exposes a mispairing --
 the tracked eps must equal the exact residual recompute
-eps = Y - mu - X beta -- at N = 4096 (two 2048-tiles, so the kernels'
-grown tiles diverge from any per-tile interleave), across every packed
-kernel family.  A mispairing shows up as O(1) relative error after one
-iteration; genuine f32 rank-1 drift is ~1e-6 over these chain lengths.
+eps = Y - mu - X beta -- at N = 4096, across J and storage cases.  A
+mispairing shows up as O(1) relative error after one iteration; genuine
+f32 rank-1 drift is ~1e-6 over these chain lengths.
 """
 import jax
 import jax.numpy as jnp
@@ -57,20 +50,19 @@ def _rel_eps_err(smp, st):
     return num / max(den, 1e-30)
 
 
-@pytest.mark.parametrize("jb,layout,missing", [
-    (None, "auto", False),   # auto plan -> transposed strided-rounds kernel
-    (None, "auto", True),    # missing fast path (fold + sparse correction)
-    (4, "t", False),
-    (4, "row", False),       # row-layout jacobi kernel (grown N-tiles too)
-    (1, "auto", False),      # serial anchor
+@pytest.mark.parametrize("jb,missing", [
+    (None, False),   # auto plan: J=8 blocks of 32
+    (None, True),    # exact decode of missing calls
+    (4, False),
+    (4, True),
+    (1, False),      # serial anchor
 ])
-def test_bayesr_packed_eps_consistent_4096(jb, layout, missing):
+def test_bayesr_packed_eps_consistent_4096(jb, missing):
     XT, Y, _ = _packed_inputs(3, missing=missing)
     smp = SpikeSlabSampler(XT, Y, CVA, BayesRConfig(block_size=256),
                            transposed=True, x_dtype="2bit",
                            x_stats=packed_word_stats(M),
-                           dtype=jnp.float32, jacobi_blocks=jb,
-                           jacobi_layout=layout)
+                           dtype=jnp.float32, jacobi_blocks=jb)
     st = smp.init(jax.random.PRNGKey(1))
     st = smp._run_steps(st, smp.data, 3)
     assert _rel_eps_err(smp, st) < 1e-4
@@ -88,14 +80,13 @@ def test_horseshoe_packed_eps_consistent_4096(missing):
     assert _rel_eps_err(smp, st) < 1e-4
 
 
-@pytest.mark.parametrize("C", [2, 8])   # 2 -> mc kernel, 8 -> wide mc8
+@pytest.mark.parametrize("C", [2, 8])
 def test_bayesr_packed_mc_eps_consistent_4096(C):
     XT, Y, _ = _packed_inputs(7)
     smp = SpikeSlabSampler(XT, Y, CVA, BayesRConfig(block_size=256),
                            transposed=True, x_dtype="2bit",
                            x_stats=packed_word_stats(M),
-                           dtype=jnp.float32, jacobi_blocks=4,
-                           jacobi_layout="t")
+                           dtype=jnp.float32, jacobi_blocks=4)
     st = jax.vmap(smp.init)(jax.random.split(jax.random.PRNGKey(3), C))
     for _ in range(2):
         st = smp.step_chains(st)
@@ -120,7 +111,7 @@ def test_sharded_packed_eps_consistent_4096():
 
     XT, Y, _ = _packed_inputs(11)
     smp = ShardedSpikeSlabSampler(XT, Y, CVA, BayesRConfig(block_size=256),
-                                  make_mesh(2, 1), backend="pallas",
+                                  make_mesh(2, 1),
                                   transposed=True, dtype=jnp.float32,
                                   x_dtype="2bit", has_missing=False,
                                   x_stats=packed_word_stats(M))
@@ -133,15 +124,15 @@ def test_sharded_packed_eps_consistent_4096():
 @pytest.mark.slow
 def test_packed_t_signal_recovery_4096():
     """End-to-end statistical validity past the 2048-lane boundary: with
-    the mispaired layout the X<->Y association is destroyed and the
-    sampler recovers nothing; with the fix the planted signal comes back
-    through the transposed auto plan at N=4096."""
+    a mispaired layout the X<->Y association is destroyed and the sampler
+    recovers nothing; the planted signal must come back through the auto
+    plan at N=4096."""
     XT, Y, bt = _packed_inputs(13, signal=True)
     smp = SpikeSlabSampler(XT, Y, CVA, BayesRConfig(block_size=256),
                            transposed=True, x_dtype="2bit",
                            x_stats=packed_word_stats(M),
                            dtype=jnp.float32)
-    assert smp.jacobi > 1        # the transposed fast path, not the anchor
+    assert smp.jacobi > 1        # a Jacobi plan, not the J=1 anchor
     st = smp.init(jax.random.PRNGKey(6))
     st = smp._run_steps(st, smp.data, 60)
     bhat = np.zeros(M)

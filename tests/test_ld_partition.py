@@ -1,10 +1,9 @@
-"""Fixed strided-partition semantics under LD (round-4 VERDICT ask #7).
+"""Fixed strided-partition semantics under LD.
 
 tools/ld_validation.py compares the exact-sequential J=1 anchor against
-the transposed strided-rounds auto plan on AR(1)-correlated genotypes;
-this slow-tier test runs a reduced shape with quantitative bounds.  The
-TPU-scale run (N=8k, M=32k, rho=0.9) is recorded in BENCH.md /
-ARCHITECTURE.md.
+the strided-rounds auto plan on AR(1)-correlated genotypes; this
+slow-tier test runs a reduced shape with quantitative bounds.  A
+full-scale run on the GPU is not recorded yet.
 """
 import os
 import sys

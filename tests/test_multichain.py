@@ -1,12 +1,9 @@
-"""Fused multi-chain sweep vs C independent single-chain pallas sweeps.
+"""Fused multi-chain sweep vs C independent single-chain sweeps.
 
-The multi-chain kernel (ops/pallas_multichain.py) must reproduce the
-single-chain kernel chain-by-chain when fed the same state and the same
-variates: MC randomness is MARKER-indexed while the single-chain kernel is
-POSITION-indexed, so the test remaps one onto the other through the shared
-border/inner permutations.  In interpret mode both kernels evaluate the same
-XLA ops in the same order, so the comparison is to float tolerance with
-exact labels.
+The strided sweep (ops/strided.py) carries a leading chain axis; all chains
+share the visit order and Gram blocks.  Fed the same state and the same
+position-indexed variates, it must reproduce C single-chain sweeps chain
+by chain: exact labels and counts, floats to reassociation tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -16,95 +13,53 @@ import pytest
 from bayesrrcpp_tpu import BayesRConfig, ChainConfig, GroupsConfig, \
     SpikeSlabSampler, simulate
 from bayesrrcpp_tpu.ops import block_sweep as bs
-from bayesrrcpp_tpu.ops.pallas_multichain import bayesr_sweep_pallas_mc
-from bayesrrcpp_tpu.ops.pallas_sweep import bayesr_sweep_pallas
 
 CVA = np.array([0.001, 0.01, 0.1])
-
-
-def _pos_from_marker(p_m, border, inner, B):
-    """Remap a (Mpad,) marker-indexed stream to the single-chain kernel's
-    position-indexed layout: position b*B + s drives marker
-    border[b]*B + inner[border[b], s]."""
-    border = np.asarray(border)
-    inner = np.asarray(inner)
-    p_m = np.asarray(p_m)
-    out = np.empty_like(p_m)
-    for bpos, bb in enumerate(border):
-        for s in range(B):
-            out[bpos * B + s] = p_m[bb * B + inner[bb, s]]
-    return out
 
 
 def _mc_vs_single(sim, cva, g_assign=None, C=3, iters=2):
     kw = {} if g_assign is None else dict(g_assign=g_assign)
     cfg = (BayesRConfig(block_size=32) if g_assign is None
            else GroupsConfig(block_size=32))
-    s = SpikeSlabSampler(sim.X, sim.Y, cva, cfg, backend="pallas",
-                         dtype=jnp.float32, **kw)
+    s = SpikeSlabSampler(sim.X, sim.Y, cva, cfg, dtype=jnp.float32,
+                         jacobi_blocks=3, **kw)
     d = s.data
-    B, nb, Mpad, G, K = s.B, s.nb, s.Mpad, s.G, s.K
+    B, nb, Mpad = s.B, s.nb, s.Mpad
 
     rng = np.random.default_rng(0)
-    states = []
-    for c in range(C):
-        st = s.init(jax.random.PRNGKey(100 + c))
-        states.append({"eps": np.asarray(st.eps).copy(),
-                       "beta": np.asarray(st.beta).copy(),
-                       "labels": np.asarray(st.labels).copy(),
-                       "pi": np.asarray(st.pi).copy(),
-                       "sigmaE": float(st.sigmaE),
-                       "sigmaGG": np.asarray(st.sigmaGG).copy()})
+    sts = [s.init(jax.random.PRNGKey(100 + c)) for c in range(C)]
+    stack = lambda f: jnp.stack([f(st) for st in sts])
+    eps, beta, labels = stack(lambda t: t.eps), stack(lambda t: t.beta), \
+        stack(lambda t: t.labels)
+    pi, sE, sGG = stack(lambda t: t.pi), stack(lambda t: t.sigmaE), \
+        stack(lambda t: t.sigmaGG)
 
     for it in range(iters):
-        border, inner = bs.block_orders(jax.random.PRNGKey(7 + it), nb, B)
-        p_m = rng.uniform(size=(C, Mpad)).astype(np.float32)
-        z_m = rng.normal(size=(C, Mpad)).astype(np.float32)
-
-        # ---- fused multi-chain call
-        mc = bayesr_sweep_pallas_mc(
-            d.XT, d.gram, d.xsq,
-            jnp.asarray(np.stack([st["eps"] for st in states])),
-            jnp.asarray(np.stack([st["beta"] for st in states])),
-            jnp.asarray(np.stack([st["labels"] for st in states])),
-            border, inner, jnp.asarray(p_m), jnp.asarray(z_m),
-            jnp.asarray(np.stack([st["pi"] for st in states])),
-            d.cva,
-            jnp.asarray([st["sigmaE"] for st in states], jnp.float32),
-            jnp.asarray(np.stack([st["sigmaGG"] for st in states])),
-            d.g_assign, d.valid, interpret=True)
-
-        # ---- C single-chain calls with remapped randoms
-        inner_np = np.asarray(inner)
-        for c, st in enumerate(states):
-            p_pos = _pos_from_marker(p_m[c], border, inner_np, B)
-            z_pos = _pos_from_marker(z_m[c], border, inner_np, B)
-            res = bayesr_sweep_pallas(
-                d.XT, d.gram, d.xsq, jnp.asarray(st["eps"]),
-                jnp.asarray(st["beta"]), jnp.asarray(st["labels"]),
-                border, inner, jnp.asarray(p_pos), jnp.asarray(z_pos),
-                jnp.asarray(st["pi"]), d.cva,
-                jnp.asarray(st["sigmaE"], jnp.float32),
-                jnp.asarray(st["sigmaGG"]), d.g_assign, d.valid,
-                interpret=True)
+        rho, inner = bs.strided_orders(jax.random.PRNGKey(7 + it), nb, B,
+                                       s.jacobi)
+        p = jnp.asarray(rng.uniform(size=(C, Mpad)).astype(np.float32))
+        z = jnp.asarray(rng.normal(size=(C, Mpad)).astype(np.float32))
+        mc = s._sweep(d, eps, beta, labels, rho, inner, p, z, pi, sE, sGG)
+        for c in range(C):
+            res = s._sweep(d, eps[c:c + 1], beta[c:c + 1],
+                           labels[c:c + 1], rho, inner, p[c:c + 1],
+                           z[c:c + 1], pi[c:c + 1], sE[c:c + 1],
+                           sGG[c:c + 1])
             np.testing.assert_array_equal(
-                np.asarray(mc.labels)[c], np.asarray(res.labels),
+                np.asarray(mc.labels)[c], np.asarray(res.labels)[0],
                 err_msg=f"labels diverged chain {c} iter {it}")
             np.testing.assert_allclose(np.asarray(mc.beta)[c],
-                                       np.asarray(res.beta),
+                                       np.asarray(res.beta)[0],
                                        rtol=2e-5, atol=1e-7)
             np.testing.assert_allclose(np.asarray(mc.eps)[c],
-                                       np.asarray(res.eps),
+                                       np.asarray(res.eps)[0],
                                        rtol=2e-5, atol=2e-6)
-            np.testing.assert_allclose(np.asarray(mc.v)[c],
-                                       np.asarray(res.v).reshape(s.G, s.K),
-                                       atol=0)
+            np.testing.assert_array_equal(np.asarray(mc.v)[c],
+                                          np.asarray(res.v)[0])
             np.testing.assert_allclose(
-                np.asarray(mc.beta_acum)[c], np.asarray(res.beta_acum),
+                np.asarray(mc.beta_acum)[c], np.asarray(res.beta_acum)[0],
                 rtol=2e-5, atol=1e-8)
-            st["eps"] = np.asarray(mc.eps)[c].copy()
-            st["beta"] = np.asarray(mc.beta)[c].copy()
-            st["labels"] = np.asarray(mc.labels)[c].copy()
+        eps, beta, labels = mc.eps, mc.beta, mc.labels
 
 
 def test_mc_equals_single_ungrouped():
@@ -121,14 +76,14 @@ def test_mc_equals_single_groups():
 
 @pytest.mark.slow
 def test_mc_fused_full_chain_recovery():
-    """run_chains(fused=True): chains are independent, finite, and recover
-    the simulated effects."""
+    """run_chains: chains are independent, finite, and recover the
+    simulated effects."""
     sim = simulate.simulate_bayesr(seed=83, N=250, M=96, n_causal=12, h2=0.6)
     s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=32),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     assert s.supports_fused_chains
     _, out = s.run_chains(jax.random.PRNGKey(3), 3,
-                          ChainConfig(120, 60, 4), fused=True)
+                          ChainConfig(120, 60, 4))
     beta = np.asarray(out["beta"])          # (n_emits, C, M)
     assert beta.shape[1] == 3
     assert np.isfinite(beta).all()
@@ -151,8 +106,7 @@ def test_mc_fold_affine_int8():
     y = dense @ np.where(rng.random(M) < 0.1, 0.3, 0.0) + rng.normal(0, 0.7, N)
 
     cfg = BayesRConfig(block_size=32)
-    s_d = SpikeSlabSampler(dense, y, CVA, cfg, backend="pallas",
-                           dtype=jnp.float32)
+    s_d = SpikeSlabSampler(dense, y, CVA, cfg, dtype=jnp.float32)
     s_q = SpikeSlabSampler(dosage, y, CVA, cfg, x_dtype="int8",
                            dtype=jnp.float32)
     assert s_q._x_fold and s_q.supports_fused_chains
@@ -172,61 +126,55 @@ def test_mc_fold_affine_int8():
 
 @pytest.mark.slow
 def test_mc_quantized_missing_falls_back():
+    """int8 with missing calls runs fused chains like every other
+    storage; the scan reference has no chain axis."""
     rng = np.random.default_rng(85)
     dosage = rng.binomial(2, 0.4, size=(60, 32)).astype(float)
     dosage[0, 0] = np.nan
     y = rng.normal(size=60)
     s = SpikeSlabSampler(dosage, y, CVA, BayesRConfig(block_size=16),
                          x_dtype="int8", dtype=jnp.float32)
-    assert not s.supports_fused_chains
-    with pytest.raises(ValueError):
-        s.run_chains(jax.random.PRNGKey(0), 2, ChainConfig(4, 2, 1),
-                     fused=True)
-    _, out = s.run_chains(jax.random.PRNGKey(0), 2, ChainConfig(6, 2, 2),
-                          fused=None)  # auto-falls back to vmap
+    assert s.supports_fused_chains and not s._x_fold
+    _, out = s.run_chains(jax.random.PRNGKey(0), 2, ChainConfig(6, 2, 2))
     assert np.isfinite(np.asarray(out["beta"])).all()
+    s_scan = SpikeSlabSampler(np.nan_to_num(dosage), y, CVA,
+                              BayesRConfig(block_size=16), backend="scan")
+    with pytest.raises(ValueError):
+        s_scan.run_chains(jax.random.PRNGKey(0), 2, ChainConfig(4, 2, 1))
 
 
 def test_hs_mc_equals_single():
     """Fused multi-chain horseshoe == C single-chain horseshoe sweeps."""
     from bayesrrcpp_tpu import HorseshoeConfig, HorseshoeSampler
-    from bayesrrcpp_tpu.ops.pallas_multichain import horseshoe_sweep_pallas_mc
-    from bayesrrcpp_tpu.ops.pallas_sweep import horseshoe_sweep_pallas
 
     sim = simulate.simulate_bayesr(seed=86, N=140, M=64, n_causal=8, h2=0.5)
     s = HorseshoeSampler(sim.X, sim.Y, HorseshoeConfig(A=0.05, block_size=32),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32, jacobi_blocks=2)
     d = s.data
     B, nb, Mpad = s.B, s.nb, s.Mpad
     C = 3
     rng = np.random.default_rng(1)
-    eps = np.stack([np.asarray(s.init(jax.random.PRNGKey(c)).eps)
-                    for c in range(C)])
+    eps = jnp.stack([s.init(jax.random.PRNGKey(c)).eps for c in range(C)])
     beta = rng.normal(0, 0.05, (C, Mpad)).astype(np.float32)
     beta[:, s.M:] = 0.0
-    lam = rng.uniform(0.5, 2.0, (C, Mpad)).astype(np.float32)
-    tau = rng.uniform(0.01, 0.1, C).astype(np.float32)
-    c2 = rng.uniform(0.5, 2.0, C).astype(np.float32)
-    sE = rng.uniform(0.3, 0.8, C).astype(np.float32)
-    z_m = rng.normal(size=(C, Mpad)).astype(np.float32)
+    beta = jnp.asarray(beta)
+    f32 = lambda *shape, lo=0.5, hi=2.0: jnp.asarray(
+        rng.uniform(lo, hi, shape).astype(np.float32))
+    lam, tau, c2 = f32(C, Mpad), f32(C, lo=0.01, hi=0.1), f32(C)
+    sE = f32(C, lo=0.3, hi=0.8)
+    z = jnp.asarray(rng.normal(size=(C, Mpad)).astype(np.float32))
 
-    border, inner = bs.block_orders(jax.random.PRNGKey(11), nb, B)
-    eps_mc, beta_mc = horseshoe_sweep_pallas_mc(
-        d.XT, d.gram, d.xsq, jnp.asarray(eps), jnp.asarray(beta),
-        border, inner, jnp.asarray(z_m), jnp.asarray(lam),
-        jnp.asarray(tau), jnp.asarray(c2), jnp.asarray(sE), d.valid,
-        interpret=True)
-    inner_np = np.asarray(inner)
+    rho, inner = bs.strided_orders(jax.random.PRNGKey(11), nb, B, s.jacobi)
+    eps_mc, beta_mc = s._sweep(d, eps, beta, rho, inner, z, lam, tau, c2, sE)
     for c in range(C):
-        z_pos = _pos_from_marker(z_m[c], border, inner_np, B)
-        eps_1, beta_1 = horseshoe_sweep_pallas(
-            d.XT, d.gram, d.xsq, jnp.asarray(eps[c]), jnp.asarray(beta[c]),
-            border, inner, jnp.asarray(z_pos), jnp.asarray(lam[c]),
-            jnp.asarray(tau[c]), jnp.asarray(c2[c]), jnp.asarray(sE[c]),
-            d.valid, interpret=True)
-        np.testing.assert_allclose(np.asarray(beta_mc)[c], np.asarray(beta_1),
+        sl = slice(c, c + 1)
+        eps_1, beta_1 = s._sweep(d, eps[sl], beta[sl], rho, inner, z[sl],
+                                 lam[sl], tau[sl], c2[sl], sE[sl])
+        np.testing.assert_allclose(np.asarray(beta_mc)[c],
+                                   np.asarray(beta_1)[0],
                                    rtol=2e-5, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(eps_mc)[c], np.asarray(eps_1),
+        np.testing.assert_allclose(np.asarray(eps_mc)[c],
+                                   np.asarray(eps_1)[0],
                                    rtol=2e-5, atol=2e-6)
 
 
@@ -236,10 +184,9 @@ def test_hs_mc_full_chain():
 
     sim = simulate.simulate_bayesr(seed=87, N=200, M=64, n_causal=8, h2=0.6)
     s = HorseshoeSampler(sim.X, sim.Y, HorseshoeConfig(A=0.05, block_size=32),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     assert s.supports_fused_chains
-    _, out = s.run_chains(jax.random.PRNGKey(4), 3, ChainConfig(80, 40, 4),
-                          fused=True)
+    _, out = s.run_chains(jax.random.PRNGKey(4), 3, ChainConfig(80, 40, 4))
     beta = np.asarray(out["beta"])
     assert beta.shape[1] == 3 and np.isfinite(beta).all()
     assert not np.allclose(beta[:, 0], beta[:, 1])

@@ -43,7 +43,7 @@ def _single_process_reference():
     X, Y, cva, g_assign = make_problem()
     mesh = make_mesh(2, 2)
     s = ShardedSpikeSlabSampler(X, Y, cva, GroupsConfig(block_size=16), mesh,
-                                g_assign=g_assign, backend="xla",
+                                g_assign=g_assign,
                                 dtype=jnp.float32)
     state = s.init(jax.random.PRNGKey(7))
     for _ in range(3):

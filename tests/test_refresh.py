@@ -22,7 +22,7 @@ def test_refresh_eps_matches_direct_dense():
     cva = np.tile(CVA, (2, 1))
     s = SpikeSlabSampler(sim.X, sim.Y, cva, GroupsConfig(block_size=16),
                          g_assign=sim.g_assign, fixed=sim.fixed,
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     st = s.init(jax.random.PRNGKey(0))
     for _ in range(3):
         st = s.step(st)
@@ -67,7 +67,7 @@ def test_chain_with_refresh_runs_and_recovers():
     sim = simulate.simulate_bayesr(seed=17, N=400, M=160, n_causal=16,
                                    h2=0.5)
     s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     chain = ChainConfig(150, 75, 5, eps_refresh_every=20)
     st, out = s.run(jax.random.PRNGKey(7), chain)
     bh = out["beta"].mean(axis=0)
@@ -82,7 +82,7 @@ def test_horseshoe_refresh_matches_direct():
     sim = simulate.simulate_bayesr(seed=19, N=200, M=96, n_causal=10,
                                    h2=0.5)
     h = HorseshoeSampler(sim.X, sim.Y, HorseshoeConfig(block_size=16),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     st = h.init(jax.random.PRNGKey(2))
     for _ in range(3):
         st = h.step(st)
@@ -96,7 +96,7 @@ def test_refresh_chain_batched():
     sim = simulate.simulate_bayesr(seed=23, N=150, M=64, n_causal=8,
                                    h2=0.5)
     s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16),
-                         backend="pallas", dtype=jnp.float32)
+                         dtype=jnp.float32)
     st = jax.vmap(s.init)(jax.random.split(jax.random.PRNGKey(3), 2))
     st = s.step_chains(st)
     st_r = s.refresh_eps(st)
@@ -151,7 +151,7 @@ def test_sharded_packed_refresh_matches_direct():
     Xs = np.where(np.isnan(dos), 0.0, (dos - means) / sds)
     Y = Xs[:, 0] * 0.5 + rng.normal(0, 1, N)
     s = ShardedSpikeSlabSampler(dos, Y, CVA, BayesRConfig(block_size=16),
-                                make_mesh(2, 1), backend="pallas",
+                                make_mesh(2, 1),
                                 x_dtype="2bit", dtype=jnp.float32)
     st = s.init(jax.random.PRNGKey(6))
     st = s.step(st)
@@ -166,7 +166,7 @@ def test_sharded_packed_refresh_matches_direct():
 
     from bayesrrcpp_tpu import HorseshoeConfig
     h = ShardedHorseshoeSampler(dos, Y, HorseshoeConfig(block_size=16),
-                                make_mesh(2, 1), backend="pallas",
+                                make_mesh(2, 1),
                                 x_dtype="2bit", dtype=jnp.float32)
     hst = h.init(jax.random.PRNGKey(7))
     hst = h.step(hst)

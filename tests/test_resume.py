@@ -121,9 +121,9 @@ def test_xbeta_matches_dense_across_storage_modes():
     cfg = BayesRConfig(block_size=8)
     cva = np.array([0.001, 0.01, 0.1])
     s_dense = SpikeSlabSampler(Xstd, Y, cva, cfg, backend="blocked")
-    s_int8 = SpikeSlabSampler(dos, Y, cva, cfg, backend="pallas",
+    s_int8 = SpikeSlabSampler(dos, Y, cva, cfg,
                               x_dtype="int8")
-    s_pack = SpikeSlabSampler(dos, Y, cva, cfg, backend="pallas",
+    s_pack = SpikeSlabSampler(dos, Y, cva, cfg,
                               x_dtype="2bit")
     for s in (s_dense, s_int8, s_pack):
         np.testing.assert_allclose(s.xbeta(beta), want, rtol=1e-4, atol=1e-4)
@@ -136,7 +136,7 @@ def test_run_chains_on_chunk_called(sim):
     calls = []
     s.run_chains(jax.random.PRNGKey(0), 2,
                  ChainConfig(max_iterations=8, burn_in=2, thinning=2),
-                 fused=False, collect=False,
+                 collect=False,
                  on_chunk=lambda st, done: calls.append(
                      (done, np.asarray(st.sigmaE).shape)))
     assert calls and all(shape == (2,) for _, shape in calls)

@@ -1,15 +1,15 @@
-"""Long-chain f32 residual drift at the biobank shape (round-4 VERDICT
-ask #6): run >= 1000 Gibbs iterations of the packed headline config and
-periodically compare the TRACKED eps (rank-1 updates inside the kernel)
-against a fresh exact recompute eps = Y - mu - X beta (the sampler's
-refresh_eps pass, ops/genotypes.xbeta_packed).
+"""Long-chain f32 residual drift at the biobank shape: run >= 1000 Gibbs
+iterations of the packed headline config and periodically compare the
+TRACKED eps (rank-B updates inside the sweep) against a fresh exact
+recompute eps = Y - mu - X beta (the sampler's refresh_eps pass,
+ops/genotypes.xbeta_packed).
 
 The f64 reference accrues no meaningful drift (src/BayesRv2.cpp:60); the
 f32 engine needs this measured bound + the optional
 ChainConfig.eps_refresh_every mitigation.
 
-Run on the TPU:  python tools/drift_probe.py [iters] [check_every]
-Writes tools/drift_curve.json and prints the curve.
+Run on a GPU:  python tools/drift_probe.py [iters] [check_every]
+Writes drift_curve.json (in the working directory) and prints the curve.
 """
 import json
 import os
@@ -66,8 +66,7 @@ def main(iters=1000, check_every=100, N=100_352, M=503_808):
     out = {"config": f"biobank packed N={N} M={M} f32",
            "iters": iters, "check_every": check_every, "curve": curve,
            "max_rel_drift": max(c["rel_drift"] for c in curve)}
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "drift_curve.json")
+    path = "drift_curve.json"
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out["curve"][-1]), "->", path)

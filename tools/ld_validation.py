@@ -1,20 +1,20 @@
-"""Fixed-strided-partition validation under LD (round-4 VERDICT ask #7).
+"""Fixed-strided-partition validation under LD.
 
-Round 4 changed the Jacobi randomization to a FIXED strided block
-partition (ops/pallas_jacobi_t.py:19-30): the same J*B markers are
-co-updated every iteration, randomized only by round visit order and
-within-block permutations.  The argument that this is statistically
+The strided sweep's Jacobi randomization uses a FIXED strided block
+partition (ops/strided.py): the same J*B markers are co-updated every
+iteration, randomized only by round visit order and within-block
+permutations.  The argument that this is statistically
 benign -- same-round blocks sit ~M/J markers apart, far beyond any LD
 correlation length -- carries real weight only under CORRELATED
 genotypes, which the iid smoke recipes never test.
 
 This tool generates AR(1)-correlated dosages (corr length ~1/(1-rho)),
-runs the exact-sequential J=1 anchor and the auto transposed-Jacobi
-plan (2 chains each), and compares posterior means, PVE, split-R-hat,
-and lag-1-autocorrelation ESS per marker.
+runs the exact-sequential J=1 anchor and the auto Jacobi plan (2 chains
+each), and compares posterior means, PVE, split-R-hat, and
+lag-1-autocorrelation ESS per marker.
 
 Run:  python tools/ld_validation.py [N] [M] [rho] [iters]
-(defaults sized for the TPU; tests/test_ld_partition.py runs a reduced
+(defaults sized for a GPU; tests/test_ld_partition.py runs a reduced
 shape on CPU with bound assertions.)
 """
 import json
@@ -96,11 +96,10 @@ def run(N=8192, M=32_768, rho=0.9, iters=1500, seed=5, block=512):
     thin = 2
     chain = ChainConfig(iters, burn, thin)
     out = {}
-    for name, kw in (("J1", dict(jacobi_blocks=1)),
-                     ("auto_t", dict(jacobi_layout="t"))):
+    for name, kw in (("J1", dict(jacobi_blocks=1)), ("auto_t", {})):
         s = SpikeSlabSampler(Xs, Y, np.array([0.0001, 0.001, 0.01]),
                              BayesRConfig(block_size=block),
-                             backend="pallas", dtype=jnp.float32, **kw)
+                             dtype=jnp.float32, **kw)
         _, res = s.run_chains(jax.random.PRNGKey(11), 2, chain)
         beta = np.asarray(res["beta"])          # (S, 2, M)
         bh = beta.mean(axis=(0, 1))
@@ -109,7 +108,7 @@ def run(N=8192, M=32_768, rho=0.9, iters=1500, seed=5, block=512):
         rh = split_rhat(beta)
         ess = np.concatenate([ess_lag1(beta[:, c]) for c in range(2)])
         out[name] = {
-            "jacobi": int(s.jacobi), "layout": s.jacobi_layout,
+            "jacobi": int(s.jacobi), "block": int(s.B),
             "posterior_mean": bh, "pve": pve,
             "rhat_q99": float(np.quantile(rh, 0.99)),
             "rhat_max": float(rh.max()),
